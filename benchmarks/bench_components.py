@@ -1,6 +1,10 @@
 """Component micro-benchmarks, mirroring the reference bench defaults
 (BASELINE.md §micro-bench: rasterizer/tilemapper n=1e6 @1024x768 tile 16,
-projection n=2e6, SH n=1e6 deg 3)."""
+projection n=2e6, SH n=1e6 deg 3).  Each function returns ms per call;
+``main`` prints them with the device they ran on.
+
+    python -m benchmarks.bench_components --which rasterizer --backward
+"""
 
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ def bench_projection(n=2_000_000, iters=10):
       jnp.asarray([1000.0, 1000.0, 512.0, 384.0]),
   )
   f = lambda *a: project_gaussians(*a, (1024, 768), (0.1, 100.0))
-  return benchmarked(f"projection n={n}", f, args, iters=iters)
+  return benchmarked(f, args, iters=iters)
 
 
 def bench_sh(n=1_000_000, degree=3, iters=10):
@@ -61,8 +65,7 @@ def bench_sh(n=1_000_000, degree=3, iters=10):
       jnp.asarray(rng.standard_normal((n, 3)) * 5, jnp.float32),
       jnp.asarray(rng.standard_normal(3), jnp.float32),
   )
-  return benchmarked(f"sh n={n} deg={degree}", evaluate_sh_at, args,
-                     iters=iters)
+  return benchmarked(evaluate_sh_at, args, iters=iters)
 
 
 def bench_tilemapper(n=1_000_000, image_size=(1024, 768), iters=5,
@@ -71,14 +74,13 @@ def bench_tilemapper(n=1_000_000, image_size=(1024, 768), iters=5,
   config = RasterConfig()
   f = lambda p, d, f_: map_to_tiles(p, d, image_size, config,
                                     max_overlaps=max_overlaps, features=f_)
-  return benchmarked(f"tile_mapper n={n}", f, (packed, depth, feats),
-                     iters=iters)
+  return benchmarked(f, (packed, depth, feats), iters=iters)
 
 
 def bench_rasterizer(n=1_000_000, image_size=(1024, 768), iters=5,
-                     max_overlaps=1 << 22, backward=False, chunk_size=128):
+                     max_overlaps=1 << 22, backward=False):
   packed, depth, feats = synthetic_2d(n, image_size)
-  config = RasterConfig(chunk_size=chunk_size)
+  config = RasterConfig()
   mapping = jax.jit(lambda p, d, f_: map_to_tiles(
       p, d, image_size, config, max_overlaps=max_overlaps,
       features=f_))(packed, depth, feats)
@@ -86,14 +88,12 @@ def bench_rasterizer(n=1_000_000, image_size=(1024, 768), iters=5,
   if not backward:
     f = lambda p, f_: rasterize_with_tiles(p, f_, mapping, image_size,
                                            config)
-    return benchmarked(f"rasterize fwd n={n}", f, (packed, feats),
-                       iters=iters)
+    return benchmarked(f, (packed, feats), iters=iters)
 
   def loss(p, f_):
     o = rasterize_with_tiles(p, f_, mapping, image_size, config)
     return jnp.sum(o.image ** 2) + jnp.sum(o.image_weight)
-  return benchmarked(f"rasterize fwd+bwd n={n}",
-                     jax.grad(loss, argnums=(0, 1)), (packed, feats),
+  return benchmarked(jax.grad(loss, argnums=(0, 1)), (packed, feats),
                      iters=iters)
 
 
@@ -106,14 +106,20 @@ def main():
   parser.add_argument("--backward", action="store_true")
   args = parser.parse_args()
 
-  if args.which in ("all", "projection"):
-    bench_projection(args.n or 2_000_000)
-  if args.which in ("all", "sh"):
-    bench_sh(args.n or 1_000_000)
-  if args.which in ("all", "tilemapper"):
-    bench_tilemapper(args.n or 1_000_000)
-  if args.which in ("all", "rasterizer"):
-    bench_rasterizer(args.n or 1_000_000, backward=args.backward)
+  from tpu_splatting.utils.compile_cache import setup_compile_cache
+  setup_compile_cache()
+  d = jax.devices()[0]
+  where = f"{d.platform} {d.device_kind} x{len(jax.devices())}"
+  runs = {
+      "projection": lambda: bench_projection(args.n or 2_000_000),
+      "sh": lambda: bench_sh(args.n or 1_000_000),
+      "tilemapper": lambda: bench_tilemapper(args.n or 1_000_000),
+      "rasterizer": lambda: bench_rasterizer(args.n or 1_000_000,
+                                             backward=args.backward),
+  }
+  for name, run in runs.items():
+    if args.which in ("all", name):
+      print(f"{name}: {run():.3f} ms  [{where}]")
 
 
 if __name__ == "__main__":

@@ -3,9 +3,9 @@
 // The reference framework has no loader (its trainer lives in a separate
 // repo), but every 3DGS pipeline exchanges scenes as binary-little-endian
 // PLY files with ~60 float properties per vertex; parsing multi-hundred-MB
-// files in Python is the host-side bottleneck when feeding the TPU.  This
-// implements the runtime-IO layer natively (the TPU compute path stays
-// JAX/Pallas): header parse + bulk property de-interleave into contiguous
+// files in Python is the host-side bottleneck when feeding the device.
+// This implements the runtime-IO layer natively (the device compute path
+// stays JAX/Pallas): header parse + bulk property de-interleave into contiguous
 // per-property arrays, and the reverse for writing.
 //
 // Exposed via a minimal C ABI consumed through ctypes

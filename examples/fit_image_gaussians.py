@@ -1,7 +1,7 @@
 """Fit random 2D gaussians to an image — the end-to-end training example.
 
-TPU-native port of the reference trainer
-(/root/reference/taichi_splatting/examples/fit_image_gaussians.py:31-371):
+Port of the reference trainer
+(taichi_splatting/examples/fit_image_gaussians.py:31-371):
 project2d -> rasterize (visibility + heuristics) -> MSE + opacity/scale
 regularisers -> visibility-aware fractional optimizer step with per-point
 basis -> parameter clamps, with split/prune between epochs driven by the
@@ -63,7 +63,7 @@ def parse_args(argv=None):
   parser.add_argument("--profile", action="store_true",
                       help="trace one epoch with jax.profiler")
   parser.add_argument("--profile_dir", type=str,
-                      default="/tmp/tpu_splatting_trace")
+                      default="traces/fit_image")
   parser.add_argument("--debug", action="store_true",
                       help="check parameters for non-finite values each epoch")
   return parser.parse_args(argv)
@@ -226,36 +226,6 @@ def split_prune(params: ParameterClass, key, t, target, prune_rate,
   return params, dict(split=int(split_mask.sum()), prune=int(prune_mask.sum()))
 
 
-def autosize_stream_caps(config, params, image_size):
-  """Size the stream pipeline's static capacities to the CURRENT scene.
-
-  calibrate_stream measures strip/run/slab maxima with headroom; resizing
-  per epoch costs nothing extra under jit because split/prune already
-  changes the point count (and therefore the compiled shapes) each epoch.
-  The production defaults (strip_cap 8192) are sized for millions of
-  splats — a small fit keeps kernels tight instead of looping padding."""
-  import dataclasses
-
-  from tpu_splatting.mapper.tile_mapper import tile_shape
-  from tpu_splatting.misc.renderer2d import project_gaussians2d
-  from tpu_splatting.rasterizer.stream import calibrate_stream
-  from tpu_splatting.rasterizer.stream_function import (auto_group_width,
-                                                        stream_eligible)
-
-  if not stream_eligible(config, image_size):
-    return config
-  g = gaussians_from_tensors(params.tensors)
-  gw = auto_group_width(tile_shape(image_size, config.tile_size)[0], config)
-  cal = calibrate_stream(project_gaussians2d(g),
-                         jnp.clip(g.depths, 0.0, 1.0), g.feature,
-                         image_size, config, group_width=gw)
-  return dataclasses.replace(
-      config, stream_num_slabs=cal["num_slabs"],
-      stream_strip_cap=cal["strip_cap"], stream_slab_cap=cal["slab_cap"],
-      stream_w_max=cal["w_max"], stream_run_cap=cal["run_cap"],
-      stream_wide_cap=cal["wide_cap"], stream_dup_cap=cal["dup_cap"])
-
-
 def main(argv=None):
   args = parse_args(argv)
   key = jax.random.PRNGKey(args.seed)
@@ -283,7 +253,6 @@ def main(argv=None):
       tile_size=args.tile_size,
       blur_cov=0.3 if not args.antialias else 0.0,
       antialias=args.antialias)
-  config = autosize_stream_caps(config, params, image_size)
 
   lr_range = (args.max_lr, args.min_lr)
   epochs = make_epochs(args.iters, args.epoch, args.max_epoch)
@@ -345,7 +314,6 @@ def main(argv=None):
           params, k_split, t, tgt, args.prune_rate,
           np.asarray(heuristics_sum))
       metrics.update(prune_metrics)
-      config = autosize_stream_caps(config, params, image_size)
 
     iteration += epoch_size
     elapsed = time.time() - t_start

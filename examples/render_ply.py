@@ -1,7 +1,7 @@
 """Render a 3DGS checkpoint PLY from a chosen viewpoint.
 
 The end-user loop the reference supports through its scripts
-(/root/reference/BENCHMARK.md:32-44 renders trained mip-NeRF-360
+(BENCHMARK.md:32-44 renders trained mip-NeRF-360
 checkpoints): load a checkpoint, place a camera, render, save the image.
 
 Usage:
@@ -101,9 +101,8 @@ def main(argv=None):
   print(f"rendered {w}x{h}: weight mean {float(out.image_weight.mean()):.4f}"
         f", overflow {overflow}", file=sys.stderr)
   if overflow:
-    print("WARNING: stream capacities overflowed — raise the"
-          " RasterConfig.stream_* caps (see calibrate_stream)",
-          file=sys.stderr)
+    print("WARNING: overlap capacity overflowed — pass a larger"
+          " max_overlaps to render_gaussians", file=sys.stderr)
 
   img = np.clip(np.asarray(out.image), 0.0, 1.0)
   if args.out.suffix == ".npy":

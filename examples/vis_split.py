@@ -52,7 +52,7 @@ def main(argv=None):
   parser.add_argument("--seed", type=int, default=0)
   parser.add_argument("--uniform", action="store_true",
                       help="axis-aligned split instead of random-sampled")
-  parser.add_argument("--out", type=Path, default=Path("/tmp/vis_split"))
+  parser.add_argument("--out", type=Path, default=Path("traces/vis_split"))
   parser.add_argument("--show", action="store_true")
   args = parser.parse_args(argv)
 

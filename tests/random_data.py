@@ -1,6 +1,6 @@
 """Random scene fixtures (numpy/jnp port of the reference fixtures).
 
-Behaviour mirrors /root/reference/taichi_splatting/tests/random_data.py:
+Behaviour mirrors taichi_splatting/tests/random_data.py:
 random in-frustum cameras, 3D gaussians unprojected from random image UVs
 with NDC-uniform depth, and random 2D gaussians.
 """

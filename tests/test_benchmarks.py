@@ -27,8 +27,8 @@ def test_bench_tilemapper_smoke():
 
 def test_bench_rasterizer_smoke():
   ms = bc.bench_rasterizer(n=500, image_size=(64, 48), iters=2,
-                           max_overlaps=4096, chunk_size=16)
+                           max_overlaps=4096)
   assert ms > 0
   ms = bc.bench_rasterizer(n=200, image_size=(32, 32), iters=2,
-                           max_overlaps=2048, backward=True, chunk_size=16)
+                           max_overlaps=2048, backward=True)
   assert ms > 0

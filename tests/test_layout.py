@@ -1,12 +1,34 @@
-"""Data-movement kernel tests (window_copy, segment_sum_sorted) against
-numpy references — these carry the whole pipeline's correctness, so they get
-randomized shapes including empty windows and sentinel padding."""
+"""Data-movement tests against numpy: the kernels' masked load of a tile's
+row range (Pallas interpret mode) and the reduction of per-overlap rows to
+points — randomized shapes including empty ranges, ranges running off the
+end of the rows, and sentinel padding."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.experimental import pallas as pl
 
-from tpu_splatting.rasterizer.layout import segment_sum_sorted, window_copy
+from tpu_splatting.rasterizer.kernels import _load_block, reduce_rows_to_points
+
+
+def _copy_ranges(rows, ranges, block):
+  """Each program loads its tile's first ``block`` rows with _load_block."""
+  t, width = ranges.shape[0], rows.shape[1]
+
+  def kernel(ranges_ref, rows_ref, out_ref):
+    i = pl.program_id(0)
+    _, cols = _load_block(rows_ref, ranges_ref[i, 0], ranges_ref[i, 1],
+                          width, block)
+    for c in range(width):
+      out_ref[i, :, c] = cols[c][:, 0]
+
+  return pl.pallas_call(
+      kernel, grid=(t,),
+      out_shape=jax.ShapeDtypeStruct((t, block, width), rows.dtype),
+      interpret=True)(ranges, rows)
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -15,18 +37,20 @@ def test_window_copy(seed):
   g = 8
   p = 256
   k = 17
-  rows = rng.standard_normal((p + g, 5)).astype(np.float32)
+  rows = rng.standard_normal((p, 5)).astype(np.float32)
   src = rng.integers(0, p, k).astype(np.int32)
   cnt = rng.integers(0, g + 1, k).astype(np.int32)
   cnt[3] = 0
   cnt[5] = g
+  src[6] = p - 3                      # range ends at the last row
+  cnt[6] = 3
+  ranges = np.stack([src, np.minimum(src + cnt, p)], -1).astype(np.int32)
 
-  out = np.asarray(window_copy(jnp.asarray(rows), jnp.asarray(src),
-                               jnp.asarray(cnt), g))
-  expect = np.zeros((k * g, 5), np.float32)
+  out = np.asarray(_copy_ranges(jnp.asarray(rows), jnp.asarray(ranges), g))
+  expect = np.zeros((k, g, 5), np.float32)
   for i in range(k):
-    for r in range(cnt[i]):
-      expect[i * g + r] = rows[src[i] + r]
+    for r in range(ranges[i, 1] - ranges[i, 0]):
+      expect[i, r] = rows[src[i] + r]
   np.testing.assert_array_equal(out, expect)
 
 
@@ -37,14 +61,14 @@ def test_segment_sum_sorted(seed, n, dtype):
   rng = np.random.default_rng(seed + 10)
   m = 1000
   c = 6
-  # sorted ids with gaps, duplicates, and sentinel (= n) padding rows
-  ids = np.sort(rng.integers(0, n, m)).astype(np.int32)
-  ids[-50:] = n + rng.integers(0, 5, 50)  # sentinel tail (sorted)
-  ids = np.sort(ids)
+  # ids with gaps, duplicates, and sentinel (>= n) padding rows, in the
+  # tile-major order the mapper produces (not sorted by point)
+  ids = rng.integers(0, n, m).astype(np.int32)
+  ids[-50:] = n + rng.integers(0, 5, 50)
   rows = rng.standard_normal((m, c)).astype(dtype)
 
-  out = np.asarray(segment_sum_sorted(
-      jnp.asarray(rows), jnp.asarray(ids), n, block=64, sub=128))
+  out = np.asarray(reduce_rows_to_points(jnp.asarray(rows), jnp.asarray(ids),
+                                         n))
 
   expect = np.zeros((n, c), dtype)
   for i in range(m):
@@ -59,8 +83,8 @@ def test_segment_sum_sorted_empty_and_heavy():
   ids = np.full(m, 7, np.int32)
   ids[-10:] = 99
   rows = np.ones((m, c), np.float32)
-  out = np.asarray(segment_sum_sorted(
-      jnp.asarray(rows), jnp.asarray(ids), n, block=32, sub=64))
+  out = np.asarray(reduce_rows_to_points(jnp.asarray(rows), jnp.asarray(ids),
+                                         n))
   expect = np.zeros((n, c), np.float32)
   expect[7] = m - 10
   expect[99] = 10

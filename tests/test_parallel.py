@@ -29,20 +29,14 @@ def make_scene(n_points=256, image_size=(32, 32), seed=0):
 
 @pytest.mark.slow
 def test_data_parallel_loss_matches_single_device():
-  """DP loss == per-camera mean, and the psum'd probe cotangent equals the
-  summed single-device visibility (the stream pipeline delivers visibility
-  as the probe's cotangent, not as a forward output)."""
-  from tpu_splatting.rasterizer.stream_function import probe_width
-
+  """DP loss == per-camera mean, and the psum'd visibility equals the
+  summed single-device visibility."""
   gaussians, camera = make_scene()
-  config = RasterConfig(tile_size=16, chunk_size=16, compute_visibility=True)
+  config = RasterConfig(tile_size=16, compute_visibility=True)
   mesh = make_mesh(8)
 
   rng = np.random.default_rng(1)
   b = 8
-  n = gaussians.position.shape[0]
-  pw = probe_width(config)
-  probe = jnp.zeros((n, pw), jnp.float32)
   projections = jnp.tile(camera.projection, (b, 1))
   poses = jnp.tile(camera.T_camera_world, (b, 1, 1))
   targets = jnp.asarray(rng.random((b, 32, 32, 3)), jnp.float32)
@@ -50,31 +44,19 @@ def test_data_parallel_loss_matches_single_device():
   loss_fn = data_parallel_loss(mesh, camera, config, max_overlaps=4096)
   shard = NamedSharding(mesh, P("data"))
 
-  def wrapped(probe):
-    return loss_fn(gaussians, probe,
-                   jax.device_put(projections, shard),
-                   jax.device_put(poses, shard),
-                   jax.device_put(targets, shard))
+  sharded, sharded_vis = jax.jit(loss_fn)(
+      gaussians, jax.device_put(projections, shard),
+      jax.device_put(poses, shard), jax.device_put(targets, shard))
 
-  (sharded, fwd_vis), gpr = jax.jit(
-      jax.value_and_grad(wrapped, has_aux=True))(probe)
-  sharded_vis = fwd_vis + gpr[:, 0]
-
-  # single-device reference: mean loss + summed probe-cotangent visibility
+  # single-device reference: mean loss + summed visibility
   from tpu_splatting import render_gaussians
-
-  def cam_loss(probe, proj, pose, target):
-    cam = camera.replace(projection=proj, T_camera_world=pose)
-    out = render_gaussians(gaussians, cam, config, max_overlaps=4096,
-                           probe=probe)
-    return jnp.mean((out.image - target) ** 2)
 
   losses, vis_total = [], 0.0
   for i in range(b):
-    li, gi = jax.value_and_grad(cam_loss)(probe, projections[i], poses[i],
-                                          targets[i])
-    losses.append(li)
-    vis_total = vis_total + gi[:, 0]
+    cam = camera.replace(projection=projections[i], T_camera_world=poses[i])
+    out = render_gaussians(gaussians, cam, config, max_overlaps=4096)
+    losses.append(jnp.mean((out.image - targets[i]) ** 2))
+    vis_total = vis_total + out.points.visibility
   expected = jnp.mean(jnp.asarray(losses))
 
   np.testing.assert_allclose(float(sharded), float(expected), rtol=1e-5)
@@ -85,7 +67,7 @@ def test_data_parallel_loss_matches_single_device():
 @pytest.mark.slow
 def test_train_step_runs_and_improves():
   gaussians, camera = make_scene()
-  config = RasterConfig(tile_size=16, chunk_size=16)
+  config = RasterConfig(tile_size=16)
   mesh = make_mesh(8)
 
   groups = {k: GroupConfig(type="scalar", lr=0.05)
@@ -128,7 +110,7 @@ def test_train_step_matches_single_device_visibility_aware():
   from tpu_splatting.optim import VisibilityAwareLaProp
 
   gaussians, camera = make_scene()
-  config = RasterConfig(tile_size=16, chunk_size=16)
+  config = RasterConfig(tile_size=16)
   mesh = make_mesh(8)
 
   groups = {k: GroupConfig(type="scalar", lr=0.05)
@@ -157,31 +139,22 @@ def test_train_step_matches_single_device_visibility_aware():
       jax.device_put(projections, shard), jax.device_put(poses, shard),
       jax.device_put(targets, shard))
 
-  # single-device reference step (same probe threading as make_train_step:
-  # visibility = forward product on the sorted path + probe cotangent on
-  # the stream path — exactly one of the two is nonzero)
-  from tpu_splatting.rasterizer.stream_function import probe_width
+  # single-device reference step
   vis_cfg = dataclasses.replace(config, compute_visibility=True)
-  pw = probe_width(vis_cfg)
-  n = tensors["position"].shape[0]
-  probe = jnp.zeros((n, pw), jnp.float32)
 
-  def loss_fn(tensors, probe):
+  def loss_fn(tensors):
     g = Gaussians3D(**tensors)
-    losses, vis_fwd = [], 0.0
+    losses, vis = [], 0.0
     for i in range(b):
       cam = camera.replace(projection=projections[i],
                            T_camera_world=poses[i])
-      out = render_gaussians(g, cam, vis_cfg, max_overlaps=4096,
-                             probe=probe)
+      out = render_gaussians(g, cam, vis_cfg, max_overlaps=4096)
       losses.append(jnp.mean((out.image - targets[i]) ** 2))
-      if out.points._visibility is not None:
-        vis_fwd = vis_fwd + out.points._visibility
-    return jnp.mean(jnp.asarray(losses)), vis_fwd
+      vis = vis + out.points.visibility
+    return jnp.mean(jnp.asarray(losses)), vis
 
-  (ref_loss, fwd_vis), (grads, gpr) = jax.value_and_grad(
-      loss_fn, argnums=(0, 1), has_aux=True)(tensors, probe)
-  vis = fwd_vis + gpr[:, 0]
+  (ref_loss, vis), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+      tensors)
   ref_opt = VisibilityAwareLaProp(groups)
   ref_tensors, _ = ref_opt.step(tensors, grads, ref_opt.init(tensors), vis)
 
@@ -209,50 +182,3 @@ def test_sharded_projection_matches_replicated():
   np.testing.assert_allclose(np.asarray(points), np.asarray(exp_points),
                              rtol=1e-3, atol=5e-3)
   np.testing.assert_array_equal(np.asarray(in_view), np.asarray(exp_iv))
-
-
-@pytest.mark.slow
-def test_band_sharded_stream_matches_single_device():
-  """Band-sharded stream rasterization (parallel/stream_sharded.py):
-  per-band images BIT-IDENTICAL to the single-device kernels, and the
-  halo'd gradient reduce matches the replicated one."""
-  import sys
-  sys.path.insert(0, "tests")
-  from test_stream import make_scene
-  from tpu_splatting.parallel.stream_sharded import (band_sharded_forward,
-                                                     band_sharded_grad)
-  from tpu_splatting.rasterizer.stream import stream_map
-  from tpu_splatting.rasterizer.stream_function import (
-      stream_reduce, stream_rasterize_with_mapping)
-  from tpu_splatting.rasterizer.stream_kernels import (
-      slab_width, stream_backward, stream_forward)
-
-  config = RasterConfig(tile_size=8, chunk_size=8)
-  image_size = (32, 32)   # th=4 bands over 4 shards
-  n = 90
-  packed, depths, feats = make_scene(23, n, image_size)
-  mm = stream_map(packed, depths, feats, image_size, config, group_width=2,
-                  num_slabs=2, strip_cap=128, slab_cap=256, w_max=16,
-                  run_cap=16)
-  assert int(mm.num_overflow) == 0
-  mesh = Mesh(jax.devices("cpu")[:4], ("y",))
-
-  # forward: bit-identical per band
-  img_ref = stream_forward(mm, config)
-  img_sh = jax.jit(lambda: band_sharded_forward(mm, config, mesh))()
-  np.testing.assert_array_equal(np.asarray(img_sh), np.asarray(img_ref))
-
-  # backward: halo'd merge + gathered stage 2 == replicated reduce
-  gimg = jnp.asarray(
-      np.random.default_rng(0).standard_normal(img_ref.shape),
-      img_ref.dtype)
-  f = mm.feature_size
-  slabw = slab_width(config, f)
-  gout = stream_backward(mm, img_ref, gimg, config, mm.run_cap)
-  cols_ref = stream_reduce(gout, mm, mm.run_cap, slabw)
-
-  _, cols_sh = jax.jit(
-      lambda g: band_sharded_grad(mm, g, config, mesh))(gimg)
-  for c_ref, c_sh in zip(cols_ref, cols_sh):
-    np.testing.assert_allclose(np.asarray(c_sh), np.asarray(c_ref),
-                               rtol=1e-5, atol=1e-6)

@@ -31,7 +31,7 @@ def make_scene(seed, n=40, image_size=(32, 24), num_channels=3,
 @pytest.mark.parametrize("seed", range(6))
 @pytest.mark.parametrize("antialias", [False, True])
 def test_forward_matches_oracle(seed, antialias):
-  config = RasterConfig(tile_size=8, chunk_size=8, antialias=antialias,
+  config = RasterConfig(tile_size=8, antialias=antialias,
                         compute_visibility=True)
   image_size = (32, 24)
   g2, packed = make_scene(seed, n=50, image_size=image_size)
@@ -54,7 +54,7 @@ def test_forward_matches_oracle(seed, antialias):
 @pytest.mark.parametrize("seed", range(4))
 def test_forward_matches_oracle_quantile(seed):
   """Non-blending (median / quantile) mode."""
-  config = RasterConfig(tile_size=8, chunk_size=8, use_alpha_blending=False,
+  config = RasterConfig(tile_size=8, use_alpha_blending=False,
                         saturate_threshold=0.25, compute_visibility=True)
   image_size = (24, 16)
   g2, packed = make_scene(seed + 50, n=60, image_size=image_size,
@@ -86,7 +86,7 @@ def test_forward_matches_oracle_quantile(seed):
 def test_rasterizer_gradcheck(seed, antialias):
   """f64 gradcheck of the hand-written backward, through the full pipeline
   on a single tile (the reference's key trick, tests/test_rasterizer.py:41)."""
-  config = RasterConfig(tile_size=8, chunk_size=8, antialias=antialias)
+  config = RasterConfig(tile_size=8, antialias=antialias)
   image_size = (8, 8)
   rng = np.random.default_rng(seed)
   n = 14
@@ -116,7 +116,7 @@ def test_rasterizer_gradcheck(seed, antialias):
 def test_saturation_freeze():
   """Many opaque overlapping gaussians: transmittance freezes, image stays
   bounded, and the frozen tail contributes nothing."""
-  config = RasterConfig(tile_size=8, chunk_size=8)
+  config = RasterConfig(tile_size=8)
   image_size = (8, 8)
   n = 64
   # identical opaque gaussians stacked on the same spot
@@ -137,12 +137,8 @@ def test_saturation_freeze():
 def test_heuristic_probe_gradients():
   """The probe cotangent carries (prune_cost, split_score); visible points
   get positive prune cost, invisible points get exactly zero."""
-  # pipeline="sorted": this asserts the sorted pipeline's forward-visibility
-  # contract (the stream path surfaces visibility via the probe cotangent —
-  # tested in test_stream.py::test_stream_probe_outputs_match_sorted)
-  config = RasterConfig(tile_size=8, chunk_size=8,
-                        compute_point_heuristic=True,
-                        compute_visibility=True, pipeline="sorted")
+  config = RasterConfig(tile_size=8, compute_point_heuristic=True,
+                        compute_visibility=True)
   image_size = (16, 16)
   g2, packed = make_scene(3, n=30, image_size=image_size)
 
@@ -179,10 +175,7 @@ def test_visibility_equals_feature_gradient():
   """The visibility invariant (reference tests/test_visibility.py:34-64):
   under an all-ones image gradient, the feature gradient of a 1-channel
   rasterization equals the forward-computed visibility."""
-  # sorted pipeline: forward-computed visibility (the stream analogue is the
-  # probe's visibility column, test_stream.py)
-  config = RasterConfig(tile_size=8, chunk_size=8, compute_visibility=True,
-                        pipeline="sorted")
+  config = RasterConfig(tile_size=8, compute_visibility=True)
   image_size = (32, 32)
   g2, packed = make_scene(7, n=60, image_size=image_size, num_channels=1)
 

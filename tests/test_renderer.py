@@ -12,15 +12,7 @@ from random_data import random_3d_gaussians, random_camera
 
 
 def small_cfg(**kw):
-  # stream caps calibrated for these 100-point scenes (max strip 96 rows,
-  # run 35, dup 545): the production defaults (strip 8192) make the
-  # interpret-mode kernels loop over thousands of padding chunks
-  # slab_cap has headroom for the packed fetch's 8-row window
-  # quantization (each window pads to whole packed sublane rows)
-  return RasterConfig(tile_size=16, chunk_size=16, stream_num_slabs=2,
-                      stream_strip_cap=256, stream_slab_cap=256,
-                      stream_w_max=16, stream_run_cap=64,
-                      stream_wide_cap=128, stream_dup_cap=1024, **kw)
+  return RasterConfig(tile_size=16, **kw)
 
 
 def make_scene(seed, n=100, image_size=(64, 48)):
@@ -123,23 +115,6 @@ def test_render_use_depth16():
   assert float(jnp.abs(out32.image - out16.image).mean()) < 1e-3
 
 
-@pytest.mark.slow
-def test_visibility_stream_matches_sorted():
-  """config.compute_visibility must work on BOTH pipelines: the stream
-  path fills points.visibility via a zero-cotangent backward dispatch
-  (renderer.py), matching the sorted pipeline's forward-computed values."""
-  gaussians, camera = make_scene(3)
-  out_t = jax.jit(lambda g: render_gaussians(
-      g, camera, small_cfg(compute_visibility=True,
-                           pipeline="stream")))(gaussians)
-  out_s = jax.jit(lambda g: render_gaussians(
-      g, camera, small_cfg(compute_visibility=True, pipeline="sorted"),
-      max_overlaps=8192))(gaussians)
-  np.testing.assert_allclose(np.asarray(out_t.points.visibility),
-                             np.asarray(out_s.points.visibility),
-                             atol=1e-4, rtol=1e-3)
-
-
 def test_render_tiled_loss_matches_detiled():
   """render_with_heuristics(tiled=True) keeps the image fields in tile
   layout; a masked tiled loss must produce the same loss value and
@@ -147,7 +122,7 @@ def test_render_tiled_loss_matches_detiled():
   the detile/entile transposes from the step graph."""
   from tpu_splatting import render_with_heuristics
   from tpu_splatting.mapper.tile_mapper import tile_shape
-  from tpu_splatting.rasterizer.stream_function import entile, tile_mask
+  from tpu_splatting.rasterizer.function import entile, tile_mask
 
   gaussians, camera = make_scene(3)
   config = small_cfg(compute_point_heuristic=True, compute_visibility=True)
@@ -167,9 +142,10 @@ def test_render_tiled_loss_matches_detiled():
     err = rendering.image - tgt_t
     return jnp.sum(mask * (err * err))
 
-  l0, r0, g0 = render_with_heuristics(loss_flat, gaussians, camera, config)
+  l0, r0, g0 = render_with_heuristics(loss_flat, gaussians, camera, config,
+                                      max_overlaps=8192)
   l1, r1, g1 = render_with_heuristics(loss_tiled, gaussians, camera,
-                                      config, tiled=True)
+                                      config, tiled=True, max_overlaps=8192)
   np.testing.assert_allclose(float(l1), float(l0), rtol=1e-6)
   for a, b in zip(jax.tree.leaves(g0), jax.tree.leaves(g1)):
     np.testing.assert_allclose(np.asarray(b), np.asarray(a),

@@ -59,7 +59,7 @@ def brute_force_overlaps(gaussians, depth, image_size, config):
 def test_mapper_matches_oracle(seed):
   rng = np.random.default_rng(seed)
   image_size = (64, 48)
-  config = RasterConfig(tile_size=16, chunk_size=8)
+  config = RasterConfig(tile_size=16)
   gaussians2d = random_2d_gaussians(rng, 60, image_size, scale_factor=0.5)
   packed = project_gaussians2d(gaussians2d)
   depth = gaussians2d.depths
@@ -85,7 +85,7 @@ def test_mapper_matches_oracle(seed):
 def test_mapper_depth_sorted_and_chunk_layout(seed):
   rng = np.random.default_rng(seed + 100)
   image_size = (96, 64)
-  config = RasterConfig(tile_size=16, chunk_size=8)
+  config = RasterConfig(tile_size=16)
   gaussians2d = random_2d_gaussians(rng, 100, image_size, scale_factor=0.8)
   packed = project_gaussians2d(gaussians2d)
   depth = np.asarray(gaussians2d.depths)
@@ -95,7 +95,6 @@ def test_mapper_depth_sorted_and_chunk_layout(seed):
   o2p = np.asarray(mapping.overlap_to_point)
   ranges = np.asarray(mapping.tile_ranges)
   n = mapping.num_points
-  g = mapping.chunk_size
 
   # depth sorted (front to back) within every tile
   for t in range(mapping.num_tiles):
@@ -103,27 +102,35 @@ def test_mapper_depth_sorted_and_chunk_layout(seed):
     d = depth[o2p[s:e]]
     assert np.all(np.diff(d) >= 0), f"tile {t} not depth sorted"
 
-  # chunk layout: each chunk belongs to one tile; per-tile chunked entries
-  # equal the sorted overlap list; nulls are n
-  pid = np.asarray(mapping.point_id_chunked)
-  c2t = np.asarray(mapping.chunk_to_tile)
-  assert np.all(np.diff(np.where(c2t < mapping.num_tiles, c2t,
-                                 mapping.num_tiles)) >= 0)
+  # range layout: tiles own consecutive, back-to-back ranges from row 0;
+  # rows past the last range are null (point id n)
+  assert ranges[0, 0] == 0
+  np.testing.assert_array_equal(ranges[1:, 0], ranges[:-1, 1])
+  total = ranges[-1, 1]
+  assert np.all(o2p[:total] < n) and np.all(o2p[total:] == n)
 
-  for t in range(mapping.num_tiles):
-    chunks = np.where(c2t == t)[0]
-    assert len(chunks) >= 1, "every tile owns at least one chunk"
-    assert np.all(np.diff(chunks) == 1), "tile chunks are contiguous"
-    entries = pid[chunks[0] * g:(chunks[-1] + 1) * g]
-    s, e = ranges[t]
-    np.testing.assert_array_equal(entries[:e - s], o2p[s:e])
-    assert np.all(entries[e - s:] == n), "tail of tile chunks is null"
+
+def test_mapper_payload_rows():
+  """The sorted payload is each overlap's packed gaussian + feature row."""
+  rng = np.random.default_rng(3)
+  image_size = (64, 48)
+  config = RasterConfig(tile_size=16)
+  gaussians2d = random_2d_gaussians(rng, 40, image_size, scale_factor=0.8)
+  packed = project_gaussians2d(gaussians2d)
+  mapping = map_to_tiles(packed, gaussians2d.depths, image_size, config,
+                         max_overlaps=2048, features=gaussians2d.feature)
+  total = int(mapping.tile_ranges[-1, 1])
+  o2p = np.asarray(mapping.overlap_to_point)[:total]
+  rows = np.concatenate([np.asarray(packed), np.asarray(gaussians2d.feature)],
+                        -1)
+  np.testing.assert_array_equal(np.asarray(mapping.sorted_payload)[:total],
+                                rows[o2p])
 
 
 def test_mapper_overflow_reported():
   rng = np.random.default_rng(0)
   image_size = (64, 64)
-  config = RasterConfig(tile_size=16, chunk_size=8)
+  config = RasterConfig(tile_size=16)
   gaussians2d = random_2d_gaussians(rng, 200, image_size, scale_factor=2.0)
   packed = project_gaussians2d(gaussians2d)
 
@@ -139,7 +146,7 @@ def test_mapper_overflow_reported():
 def test_mapper_big_gaussian_path():
   """A gaussian spanning more tiles than the small window must still map to
   all its tiles via the big path."""
-  config = RasterConfig(tile_size=16, chunk_size=8, tile_window=4)
+  config = RasterConfig(tile_size=16, tile_window=4)
   image_size = (256, 256)  # 16x16 tiles
 
   # one huge isotropic gaussian covering the whole image

@@ -1,12 +1,12 @@
-"""tpu_splatting — a TPU-native differentiable Gaussian-splatting framework.
+"""tpu_splatting — a differentiable Gaussian-splatting framework in JAX.
 
-Brand-new JAX/XLA/Pallas implementation with the capability surface of
-uc-vision/taichi-splatting (see SURVEY.md), re-designed TPU-first:
-static shapes, masks instead of host-synced compaction, Pallas kernels for
-the tile-based rasterizer, custom_vjp instead of Taichi autodiff.
+JAX/XLA/Pallas implementation with the capability surface of
+uc-vision/taichi-splatting (see SURVEY.md): static shapes, masks instead of
+host-synced compaction, Pallas (Triton) kernels for the tile-based
+rasterizer on the GPU, custom_vjp instead of Taichi autodiff.
 
 Public surface mirrors the reference package
-(/root/reference/taichi_splatting/__init__.py:1-33).
+(taichi_splatting/__init__.py:1-33).
 """
 
 from . import perspective
@@ -14,9 +14,6 @@ from .data_types import Gaussians2D, Gaussians3D, RasterConfig
 from .mapper.tile_mapper import TileMapping, map_to_tiles, pad_to_tile
 from .perspective import CameraParams
 from .rasterizer.function import RasterOut, rasterize, rasterize_with_tiles
-from .rasterizer.stream import (StreamMapping, calibrate_stream,
-                                stream_map)
-from .rasterizer.stream_function import stream_rasterize_with_mapping
 from .renderer import (render_gaussians, render_projected,
                        render_with_heuristics, viewspace_gradient)
 from .rendering import RenderedPoints, Rendering
@@ -26,8 +23,6 @@ __all__ = [
     "Gaussians2D", "Gaussians3D", "RasterConfig", "CameraParams",
     "TileMapping", "map_to_tiles", "pad_to_tile",
     "RasterOut", "rasterize", "rasterize_with_tiles",
-    "StreamMapping", "calibrate_stream", "stream_map",
-    "stream_rasterize_with_mapping",
     "render_gaussians", "render_projected", "render_with_heuristics",
     "viewspace_gradient",
     "RenderedPoints", "Rendering", "evaluate_sh_at",

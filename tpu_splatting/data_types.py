@@ -1,12 +1,12 @@
 """Core data types: RasterConfig and Gaussian pytrees.
 
-TPU-native equivalents of the reference data model
-(/root/reference/taichi_splatting/data_types.py:16-143):
+Equivalents of the reference data model
+(taichi_splatting/data_types.py:16-143):
 
 * ``RasterConfig`` — frozen, hashable dataclass used as a *static* jit
   argument (the reference uses it as a Taichi kernel cache key,
   data_types.py:16-46; under XLA it becomes part of the compilation key).
-  Extended with the TPU-specific static-capacity knobs that replace the
+  Extended with the tile mapper's static capacities, which replace the
   reference's host-synchronised dynamic allocation (SURVEY.md §2.1).
 
 * ``Gaussians3D`` / ``Gaussians2D`` — registered dataclass pytrees with the
@@ -19,7 +19,6 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +31,7 @@ class RasterConfig:
   """Rasterisation behaviour config (static under jit).
 
   Field semantics match the reference (data_types.py:16-46); the fields after
-  ``median_threshold`` are TPU-specific additions.
+  ``median_threshold`` are the tile mapper's static capacities.
   """
   tile_size: int = 16
 
@@ -49,7 +48,7 @@ class RasterConfig:
   alpha_threshold: float = 1.0 / 255.0
 
   # stop alpha blending at this point.
-  # TPU divergence: applied consistently in forward AND backward as a
+  # Divergence: applied consistently in forward AND backward as a
   # transmittance "freeze" (the reference forward keeps accumulating past
   # saturation in blending mode while its backward stops — see
   # rasterizer/forward.py:101-112 vs backward.py:154; we freeze in both so the
@@ -64,77 +63,18 @@ class RasterConfig:
 
   median_threshold: float = 0.25
 
-  # --- TPU-specific static-capacity / kernel-shape knobs ------------------
-
-  # Points staged per pipeline chunk in the rasterizer (grid granularity).
-  chunk_size: int = 128
+  # --- static capacities of the tile mapper --------------------------------
 
   # Per-gaussian candidate tile window (tiles per axis) for the tile mapper's
   # small-gaussian path. Gaussians spanning more tiles go to the big path.
-  # The candidate-sort cost is superlinear in n * tile_window^2 (measured),
-  # so keep this tight; trained-scene splats rarely span more than 3 tiles.
+  # Candidates cost n * tile_window^2 sort rows, so keep this tight;
+  # trained-scene splats rarely span more than 3 tiles.
   tile_window: int = 3
 
   # Capacity of the big-gaussian path (number of gaussians routed to the
   # wider window) and its window size.
   big_capacity: int = 8192
   big_tile_window: int = 16
-
-  # unused by the TPU kernels (kept for API parity with the reference
-  # backward's register tiling knob, data_types.py:22)
-  pixel_stride: Tuple[int, int] = (2, 2)
-
-  # --- rasterization pipeline selection ------------------------------------
-  # "stream": the tile-stream pipeline (one N-sized home sort, windowed
-  #   fetch, rank-mask compositing — rasterizer/stream*.py), the fast path.
-  # "sorted": the sorted-overlap pipeline (global candidate sort,
-  #   chunk-grid kernels — mapper/tile_mapper.py + rasterizer/kernels.py),
-  #   the reference-shaped path; also serves >16k-tile images and very
-  #   wide feature vectors.
-  # "auto": stream when the image/feature shape allows, else sorted.
-  pipeline: str = "auto"
-
-  # Static capacities for the stream pipeline (see rasterizer/stream.py;
-  # size with calibrate_stream and dataclasses.replace them in).  Overflow
-  # is always counted in the mapping, never silent.
-  stream_num_slabs: int = 6
-  stream_strip_cap: int = 8192
-  stream_slab_cap: int = 512
-  stream_group_width: int = 0   # 0 = widest of (8,4,2,1) dividing tiles_wide
-  stream_w_max: int = 40
-  stream_run_cap: int = 512
-  stream_wide_cap: int = 1024
-  stream_dup_cap: int = 8192
-
-  # Split-bf16 passes for the stream kernels' rank-mask transmittance
-  # matmuls: 2 = f32-grade (~2^-16 relative, the default), 1 = single
-  # bf16 pass (~0.4% per-term input rounding on log-transmittance, ~35%
-  # cheaper forward/backward).  CPU interpret mode is always exact.
-  stream_passes: int = 2
-
-  # Share the forward's assembled slab blocks with the backward: the
-  # forward kernel writes each (tile, slab) working set it assembles as a
-  # second output and the backward reads it instead of re-running the
-  # window copies (measured ~32 ms/frame of tiered VMEM copies at the 2M
-  # headline) and the strip DMAs.  Costs one (G, gw*S*c_cap/rpb, 128) f32
-  # HBM buffer (~1.6 GB at the headline shapes) held as a residual; scenes
-  # with many depth slabs (large num_slabs) may prefer re-assembly.
-  stream_share_asm: bool = True
-
-  # HBM budget (MB) for the shared-assembly residual itself (one
-  # (gw*S*slab_cap/rpb, 128) block per GROUP lives between forward and
-  # backward).  Group count scales with resolution — at 4K (~6k groups)
-  # the residual can reach several GB; beyond the budget asm_feasible
-  # rejects sharing and the backward re-assembles from strips.
-  stream_asm_budget_mb: int = 2048
-
-  # HBM budget (MB) for the backward's per-group gradient-slab blocks.
-  # Scenes with very long home runs (run_cap in the thousands) would need
-  # a gout buffer far beyond HBM; when the full buffer exceeds this
-  # budget the backward runs band-chunked inside one lax.scan, keeping
-  # only a sliding window of slab blocks live (stream_function.py).
-  # 0 disables chunking (always single-pass).
-  stream_gout_budget_mb: int = 4096
 
   @property
   def tile_area(self) -> int:

@@ -1,7 +1,7 @@
 """2D Gaussian (splat) math — packing, eigendecomposition, pdf evaluation.
 
-TPU-native (pure jnp, batched) re-implementation of the device-function
-library in the reference (/root/reference/taichi_splatting/taichi_lib/
+Pure-jnp, batched re-implementation of the device-function
+library in the reference (taichi_splatting/taichi_lib/
 generic.py:30-58 packing, :217-237 eig/bounds, :258-304 conic helpers,
 :306-404 axis/sigma pdf + anti-aliased pdf).
 

@@ -1,7 +1,7 @@
 """Real spherical-harmonics bases, degrees 0-4 (pure jnp, batched).
 
 Standard real SH polynomials in Cartesian form, matching the basis used by
-the reference (/root/reference/taichi_splatting/indexed_spherical_harmonics.py
+the reference (taichi_splatting/indexed_spherical_harmonics.py
 :38-106, itself derived from cheind/torch-spherical-harmonics; the reference
 generates degrees 0-8 in torch_lib/rsh.py but only uses 0-3 — degree 4 here
 is an extension, validated by the Monte-Carlo orthonormality test).  XLA

@@ -1,9 +1,9 @@
 """Quaternion / rigid-transform math (pure jnp, batched over leading axes).
 
-TPU-native re-design of the quaternion and transform helpers in the reference
-library (see /root/reference/taichi_splatting/taichi_lib/generic.py:407-485 and
+Re-design of the quaternion and transform helpers in the reference
+library (see taichi_splatting/taichi_lib/generic.py:407-485 and
 torch_lib/transforms.py:5-49 for the behaviour being reproduced).  All
-functions are dtype-polymorphic (f32 on TPU, f64 on CPU for gradcheck) and
+functions are dtype-polymorphic (f32 on the GPU, f64 on CPU for gradcheck) and
 vectorised over arbitrary leading batch dimensions.
 
 Quaternion layout: ``(x, y, z, w)`` — i.e. ``q[..., 3]`` is the scalar part,
@@ -13,6 +13,7 @@ matching the component unpacking used by the reference kernels
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -76,7 +77,8 @@ def make_homog(p: jnp.ndarray) -> jnp.ndarray:
 
 
 def transform44(m: jnp.ndarray, p_homog: jnp.ndarray) -> jnp.ndarray:
-  return p_homog @ m.swapaxes(-1, -2)
+  return jnp.matmul(p_homog, m.swapaxes(-1, -2),
+                    precision=jax.lax.Precision.HIGHEST)
 
 
 def transform_points(m44: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:

@@ -1,18 +1,15 @@
 """Tile mapping: assign depth-sorted gaussians to image tiles (pure jnp).
 
-TPU-native re-design of the reference tile mapper
-(/root/reference/taichi_splatting/mapper/tile_mapper.py:27-225 and
+Re-design of the reference tile mapper
+(taichi_splatting/mapper/tile_mapper.py:27-225 and
 taichi_lib/grid_query.py:9-93).  The reference pipeline is:
 
-  per-gaussian OBB tile count -> CUB exclusive scan (total to CPU!) ->
+  per-gaussian OBB tile count -> CUB exclusive scan (total to the host) ->
   dynamic allocation -> key-expansion kernel -> CUB radix sort (48/32-bit
   keys) -> range extraction.
 
-That shape cannot exist under XLA (host sync + dynamic allocation), so this
-implementation is re-architected around **static capacities + masks** and
-one measured v5e fact: XLA's sort moves extra payload operands almost for
-free (~0.4 ms per f32 column per 4M rows), while random row gathers cost
-~7 ns/row (~600x off HBM bandwidth).  Consequently:
+Under jit there is no host round trip or dynamic allocation, so this
+implementation works with **static capacities + masks**:
 
 * Each gaussian tests a fixed ``tile_window``^2 candidate window of tiles
   against its oriented ellipse (the separating-axis OBB test of
@@ -24,15 +21,12 @@ free (~0.4 ms per f32 column per 4M rows), while random row gathers cost
   never silently mis-rendered as long as ``num_overflow == 0``.
 
 * Candidates are sorted by ``(tile_id, depth)`` with ``lax.sort`` — and the
-  full point rows (and features, when provided) **ride the sort as payload
-  operands**, so the rasterizer's per-overlap inputs come out of the sort
-  already in tile-major depth order.  No per-overlap gather ever happens.
+  full point rows (and features, when provided) ride the sort as payload
+  operands, so the rasterizer's per-overlap inputs come out of the sort
+  already in tile-major depth order.
 
-* The per-tile segments are consumed chunk-aligned: every tile owns
-  ``ceil(count/chunk_size)`` chunks (at least one).  Only chunk-LEVEL
-  metadata is materialised here (owning tile, source row offset, valid
-  count); the (small Pallas) window-copy kernel in ``rasterizer/chunks.py``
-  lays rows out per chunk at DMA speed.
+* Per-tile ``[start, end)`` ranges into the sorted rows are found with one
+  searchsorted over the sorted tile ids (reference find_ranges_kernel).
 
 Everything is forward-only / non-differentiable, matching the reference
 (tile mapping runs under ``torch.no_grad``, tile_mapper.py:181); gradients
@@ -65,14 +59,9 @@ def tile_shape(image_size: Tuple[int, int], tile_size: int) -> Tuple[int, int]:
   return w // tile_size, h // tile_size
 
 
-def default_max_overlaps(n: int, image_size: Tuple[int, int],
-                         config: RasterConfig) -> int:
-  """Heuristic static overlap capacity: ~8 overlaps per gaussian, at least
-  a few chunks per tile, rounded to the chunk size."""
-  tw, th = tile_shape(image_size, config.tile_size)
-  cap = max(8 * n, 4 * tw * th * config.chunk_size, 1 << 16)
-  g = config.chunk_size
-  return ((cap + g - 1) // g) * g
+def default_max_overlaps(n: int) -> int:
+  """Heuristic static overlap capacity: ~8 overlaps per gaussian."""
+  return max(8 * n, 1 << 16)
 
 
 @dataclass(frozen=True)
@@ -80,30 +69,19 @@ class TileMapping:
   """Static-shape tile mapping result (pytree; sizes are static metadata).
 
   API-parity fields (reference tile_mapper.py:216-219):
-    overlap_to_point: (P + 2*chunk,) i32 — point index per overlap, sorted by
-      (tile, depth); padding entries are ``num_points`` (one past the end).
-      The trailing ``2 * chunk_size`` rows are slack so chunk windows
-      (fetched as two chunk-aligned blocks) never read out of bounds.
+    overlap_to_point: (P,) i32 — point index per overlap, sorted by
+      (tile, depth); entries past the last tile's range are ``num_points``.
     tile_ranges: (T, 2) i32 — [start, end) into the sorted overlap list.
 
-  Payload riding the sort (the TPU-native replacement for the rasterizer's
-  per-overlap gather; None when the mapper was called without data):
-    sorted_payload: (P + 2*chunk, 7 + F) f32 — packed gaussian row and feature
-      row per overlap, in the same order as ``overlap_to_point``.
+  Payload riding the sort (None when the mapper was called without data):
+    sorted_payload: (P, 7 + F) — packed gaussian row and feature row per
+      overlap, in the same order as ``overlap_to_point``.
 
-  Chunk-level layout for the Pallas rasterizer (K = P/chunk + T chunks):
-    chunk_to_tile: (K,) i32 — owning tile of each chunk; dummy chunks = T.
-    chunk_src: (K,) i32 — start row of the chunk's window into the sorted
-      overlap domain.
-    chunk_cnt: (K,) i32 — number of valid rows in the window (0 for dummy).
-    num_overflow: () i32 — overlaps dropped due to capacity (0 == exact).
+  num_overflow: () i32 — overlaps dropped due to capacity (0 == exact).
   """
   overlap_to_point: jnp.ndarray
   tile_ranges: jnp.ndarray
   sorted_payload: Optional[jnp.ndarray]
-  chunk_to_tile: jnp.ndarray
-  chunk_src: jnp.ndarray
-  chunk_cnt: jnp.ndarray
   num_overflow: jnp.ndarray
 
   # static metadata
@@ -111,36 +89,15 @@ class TileMapping:
   num_tiles: int
   tiles_wide: int
   tiles_high: int
-  chunk_size: int
-  small_window: int
-  big_window: int
   feature_size: Optional[int]
-
-  @property
-  def num_chunks(self) -> int:
-    return self.chunk_to_tile.shape[0]
-
-  @property
-  def point_id_chunked(self) -> jnp.ndarray:
-    """(K * chunk_size,) i32 point id per chunk-aligned slot (null = n).
-
-    Computed on demand (tests / fallback paths); the production path keeps
-    everything in the compact sorted domain."""
-    g = self.chunk_size
-    k = self.num_chunks
-    r = jnp.arange(g, dtype=jnp.int32)[None, :]
-    src = self.chunk_src[:, None] + r                       # (K, g)
-    valid = r < self.chunk_cnt[:, None]
-    pid = self.overlap_to_point[src.reshape(-1)].reshape(k, g)
-    return jnp.where(valid, pid, self.num_points).reshape(-1)
 
 
 jax.tree_util.register_dataclass(
     TileMapping,
     data_fields=["overlap_to_point", "tile_ranges", "sorted_payload",
-                 "chunk_to_tile", "chunk_src", "chunk_cnt", "num_overflow"],
+                 "num_overflow"],
     meta_fields=["num_points", "num_tiles", "tiles_wide", "tiles_high",
-                 "chunk_size", "small_window", "big_window", "feature_size"])
+                 "feature_size"])
 
 
 def _obb_axes(axis, sigma, gscale, tile_size):
@@ -201,26 +158,13 @@ def _candidate_hits(mean, u1, u2, e1, e2, min_tile, span, valid,
   return hit, tile_id
 
 
-def _marker_fill(values: jnp.ndarray, positions: jnp.ndarray,
-                 size: int) -> jnp.ndarray:
-  """Piecewise-constant fill: out[s] = values[t] for the largest t with
-  positions[t] <= s (positions nondecreasing, values nondecreasing).
-
-  Replaces per-slot searchsorted/gather (catastrophically slow on TPU) with
-  a tiny scatter + a dense cummax scan.  Only used on the small chunk-level
-  (K-sized) domain."""
-  buf = jnp.zeros((size,), values.dtype).at[positions].max(values,
-                                                           mode="drop")
-  return jax.lax.cummax(buf)
-
-
 def calibrate_mapper(gaussians: jnp.ndarray, depth: jnp.ndarray,
                      image_size: Tuple[int, int],
                      config: RasterConfig) -> dict:
   """One cheap N-sized dry pass over a representative scene, returning
   measured statistics and suggested static capacities.
 
-  The TPU mapper replaces the reference's host-synchronised dynamic
+  The mapper replaces the reference's host-synchronised dynamic
   allocation (tile_mapper.py:148-168) with static capacities; this helper
   is the sizing rule: run it once on a typical frame, then construct
   ``RasterConfig(tile_window=..., big_capacity=...)`` and pass
@@ -230,8 +174,8 @@ def calibrate_mapper(gaussians: jnp.ndarray, depth: jnp.ndarray,
   Returns a dict with:
     tile_window: smallest window covering >= 99.9% of valid points.
     big_capacity: 1.5x the count of points wider than that window.
-    max_overlaps: 1.15x the exact OBB hit count at that window (chunk
-      aligned), including an upper bound for big-path candidates.
+    max_overlaps: 1.15x the exact OBB hit count at that window, including
+      an upper bound for big-path candidates.
   """
   ts = config.tile_size
   tw, _ = tile_shape(image_size, ts)
@@ -274,12 +218,10 @@ def calibrate_mapper(gaussians: jnp.ndarray, depth: jnp.ndarray,
     return hit.sum(dtype=jnp.int32) + big_ub.sum(dtype=jnp.int32)
 
   total = int(hits_at(gaussians, depth, window))
-  g = config.chunk_size
-  cap = int(total * 1.15) + 4 * g
   return {
       "tile_window": window,
       "big_capacity": max(1024, int(n_wide * 1.5 + 0.5)),
-      "max_overlaps": ((cap + g - 1) // g) * g,
+      "max_overlaps": int(total * 1.15) + 1024,
       "measured_hits_upper_bound": total,
       "num_wide": n_wide,
       "num_valid": n_valid,
@@ -321,12 +263,8 @@ def map_to_tiles(gaussians: jnp.ndarray, depth: jnp.ndarray,
   num_tiles = tw * th
   assert num_tiles < 65535, (
       f"tile count {num_tiles} exceeds 16-bit id budget; increase tile_size")
-  g = config.chunk_size
   padded_size = pad_to_tile(image_size, ts)
-
-  if max_overlaps is None:
-    max_overlaps = default_max_overlaps(n, image_size, config)
-  p_cap = ((max_overlaps + g - 1) // g) * g   # chunk-aligned capacity
+  p_cap = max_overlaps or default_max_overlaps(n)
 
   # ---- depth-presort the points (cheap: N rows, one key) -------------------
   # All downstream candidate expansion happens in depth order, so the
@@ -426,18 +364,13 @@ def map_to_tiles(gaussians: jnp.ndarray, depth: jnp.ndarray,
   ops = tuple(jnp.concatenate([a, b]) for a, b in zip(ops_s, ops_b))
 
   sorted_ops = jax.lax.sort(ops, num_keys=1)
-  # truncate to capacity: valid candidates sort before sentinels; trailing
-  # chunk_size rows of slack keep chunk windows in bounds
+  # truncate to capacity: valid candidates sort before sentinels
   sorted_tile = (sorted_ops[0][:p_cap] >> 16).astype(jnp.int32)
-  overlap_to_point = jnp.concatenate(
-      [sorted_ops[1][:p_cap], jnp.full((2 * g,), n, jnp.int32)])
+  overlap_to_point = sorted_ops[1][:p_cap]
 
   sorted_payload = None
   if payload is not None:
-    cols = sorted_ops[2:]
-    sorted_payload = jnp.concatenate(
-        [jnp.stack([c[:p_cap] for c in cols], -1),
-         jnp.zeros((2 * g, 7 + f_size), gaussians.dtype)], 0)
+    sorted_payload = jnp.stack([c[:p_cap] for c in sorted_ops[2:]], -1)
 
   total = (hit_s.sum(dtype=jnp.int32) + hit_b.sum(dtype=jnp.int32))
   num_overflow = (jnp.maximum(total - p_cap, 0) + big_overflow
@@ -445,55 +378,19 @@ def map_to_tiles(gaussians: jnp.ndarray, depth: jnp.ndarray,
 
   # ---- per-tile ranges (reference find_ranges_kernel, :92-112) ------------
   # one searchsorted over T+1 edges: starts = r[:T], ends = r[1:]
-  tile_ids = jnp.arange(num_tiles, dtype=jnp.int32)
   edges = jnp.searchsorted(sorted_tile,
                            jnp.arange(num_tiles + 1, dtype=jnp.int32),
                            side="left").astype(jnp.int32)
-  starts = edges[:num_tiles]
-  ends = edges[1:]
-  tile_ranges = jnp.stack([starts, ends], -1)
-  counts_t = ends - starts
-
-  # ---- chunk-level layout (all K-sized; no per-slot arrays) ---------------
-  aligned_chunks = jnp.maximum((counts_t + g - 1) // g, 1)   # (T,)
-  chunk_offsets = jnp.concatenate(
-      [jnp.zeros((1,), jnp.int32),
-       jnp.cumsum(aligned_chunks, dtype=jnp.int32)])         # (T+1,)
-
-  k_chunks = p_cap // g + num_tiles                          # static K
-  chunk_ids = jnp.arange(k_chunks, dtype=jnp.int32)
-
-  chunk_tile_fill = _marker_fill(tile_ids, chunk_offsets[:num_tiles],
-                                 k_chunks)
-  is_dummy = chunk_ids >= chunk_offsets[num_tiles]
-  chunk_to_tile = jnp.where(is_dummy, num_tiles, chunk_tile_fill)
-
-  first_chunk = _marker_fill(chunk_offsets[:num_tiles],
-                             chunk_offsets[:num_tiles], k_chunks)
-  start_fill = _marker_fill(starts, chunk_offsets[:num_tiles], k_chunks)
-  end_fill = _marker_fill(ends, chunk_offsets[:num_tiles], k_chunks)
-
-  chunk_src = start_fill + (chunk_ids - first_chunk) * g
-  chunk_cnt = jnp.clip(end_fill - chunk_src, 0, g)
-  chunk_cnt = jnp.where(is_dummy, 0, chunk_cnt)
-  # dummy chunks read block 0 so the pipeline re-uses a cached block
-  chunk_src = jnp.where(is_dummy, 0,
-                        jnp.clip(chunk_src, 0, p_cap))   # slack covers src+g
+  tile_ranges = jnp.stack([edges[:num_tiles], edges[1:]], -1)
 
   return TileMapping(
       overlap_to_point=overlap_to_point,
       tile_ranges=tile_ranges,
       sorted_payload=sorted_payload,
-      chunk_to_tile=chunk_to_tile,
-      chunk_src=chunk_src,
-      chunk_cnt=chunk_cnt,
       num_overflow=num_overflow,
       num_points=n,
       num_tiles=num_tiles,
       tiles_wide=tw,
       tiles_high=th,
-      chunk_size=g,
-      small_window=w_small,
-      big_window=w_big,
       feature_size=f_size,
   )

@@ -1,12 +1,12 @@
 """3D Morton (Z-order) codes and spatial point ordering (pure jnp).
 
-TPU-native equivalent of /root/reference/taichi_splatting/misc/morton_sort.py
+Equivalent of taichi_splatting/misc/morton_sort.py
 (:13-152): bit-spreading Morton codes over a bounded grid plus argsort-based
 spatial reordering (the reference uses Taichi kernels + the CUB radix
 argsort; here the bit-spreads are vectorised integer ops and the sort is
 ``lax.sort``).
 
-TPU note: 64-bit integers are emulated/slow, so the default is a 30-bit code
+The default is a 30-bit code (32-bit keys sort fastest)
 (10 bits per axis, 1024^3 grid); ``morton_codes_60`` returns a (hi, lo) pair
 for two-key sorting when finer grids are needed.
 """

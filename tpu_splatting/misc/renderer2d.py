@@ -1,7 +1,6 @@
 """2D gaussian path: packing, bases, split operations, 2D renderer.
 
-TPU-native equivalent of /root/reference/taichi_splatting/misc/renderer2d.py
-(:16-148).  Pure jnp; random sampling uses explicit jax PRNG keys instead of
+Equivalent of taichi_splatting/misc/renderer2d.py (:16-148).  Pure jnp; random sampling uses explicit jax PRNG keys instead of
 torch's global RNG.
 """
 
@@ -44,7 +43,8 @@ def point_rotation(points: Gaussians2D) -> jnp.ndarray:
 
 def point_covariance(points: Gaussians2D) -> jnp.ndarray:
   basis = point_basis(points)
-  return basis @ basis.transpose(0, 2, 1)
+  return jnp.matmul(basis, basis.transpose(0, 2, 1),
+                    precision=jax.lax.Precision.HIGHEST)
 
 
 def _repeat(x, n):
@@ -67,7 +67,8 @@ def split_with_offsets(points: Gaussians2D, offsets: jnp.ndarray,
 def repeat_sample_gaussians(samples: jnp.ndarray, points: Gaussians2D,
                             n: int = 2) -> jnp.ndarray:
   basis = _repeat(point_basis(points), n)
-  return (basis @ samples.reshape(-1, 2, 1)).reshape(-1, n, 2)
+  return jnp.matmul(basis, samples.reshape(-1, 2, 1),
+                    precision=jax.lax.Precision.HIGHEST).reshape(-1, n, 2)
 
 
 def split_gaussians2d(points: Gaussians2D, key: jax.Array, n: int = 2,
@@ -115,8 +116,7 @@ def uniform_split_gaussians2d(points: Gaussians2D, key: jax.Array, n: int = 2,
 def render_gaussians(gaussians: Gaussians2D, image_size: Tuple[int, int],
                      raster_config: RasterConfig = RasterConfig(),
                      max_overlaps: Optional[int] = None,
-                     heuristic_probe: Optional[jnp.ndarray] = None,
-                     probe: Optional[jnp.ndarray] = None):
+                     heuristic_probe: Optional[jnp.ndarray] = None):
   """2D toy-render entry point (renderer2d.py:134-148)."""
   from ..rasterizer.function import rasterize
 
@@ -128,8 +128,7 @@ def render_gaussians(gaussians: Gaussians2D, image_size: Tuple[int, int],
       image_size=image_size,
       config=raster_config,
       max_overlaps=max_overlaps,
-      heuristic_probe=heuristic_probe,
-      probe=probe)
+      heuristic_probe=heuristic_probe)
 
 
 def render_with_heuristics(loss_fn, gaussians: Gaussians2D,
@@ -139,30 +138,17 @@ def render_with_heuristics(loss_fn, gaussians: Gaussians2D,
   """2D analogue of renderer.render_with_heuristics: render, evaluate
   ``loss_fn(out, gaussians)``, and return ``(loss, out, grads)`` with
   ``out.point_heuristic`` populated (columns: prune_cost, split_score) from
-  the same backward pass as ``grads`` (a Gaussians2D cotangent pytree).
-
-  On the stream pipeline, per-point visibility is ALSO a backward-pass
-  product: the probe gains a leading visibility column whose gradient
-  fills ``out.visibility`` (the sorted pipeline computes it in forward)."""
+  the same backward pass as ``grads`` (a Gaussians2D cotangent pytree)."""
   assert config.compute_point_heuristic, (
       "render_with_heuristics requires config.compute_point_heuristic")
-  from ..rasterizer.stream_function import probe_width, stream_eligible
-
-  n = gaussians.position.shape[0]
-  use_stream = stream_eligible(config, image_size)
-  pw = probe_width(config) if use_stream else 2
-  probe = jnp.zeros((n, pw), gaussians.position.dtype)
+  probe = jnp.zeros((gaussians.position.shape[0], 2),
+                    gaussians.position.dtype)
 
   def wrapped(g, probe):
-    kw = {"probe": probe} if use_stream else {"heuristic_probe": probe}
-    out = render_gaussians(g, image_size, config, max_overlaps, **kw)
+    out = render_gaussians(g, image_size, config, max_overlaps,
+                           heuristic_probe=probe)
     return loss_fn(out, g), out
 
   (loss, out), (grads, gpr) = jax.value_and_grad(
       wrapped, argnums=(0, 1), has_aux=True)(gaussians, probe)
-  if use_stream:
-    out = out._replace(point_heuristic=gpr[:, pw - 2:],
-                       visibility=gpr[:, 0] if pw == 3 else None)
-  else:
-    out = out._replace(point_heuristic=gpr)
-  return loss, out, grads
+  return loss, out._replace(point_heuristic=gpr), grads

@@ -1,7 +1,7 @@
 """Fractional (visibility-weighted) sparse optimizers — pure jnp.
 
-TPU-native equivalent of the reference optimizer subsystem
-(/root/reference/taichi_splatting/optim/fractional.py:109-229 and the Taichi
+Equivalent of the reference optimizer subsystem
+(taichi_splatting/optim/fractional.py:109-229 and the Taichi
 kernels in optim/fractional_adam.py / fractional_laprop.py).  The updates are
 per-point gathers + elementwise math, so no Pallas kernel is needed — XLA
 fuses the whole step.
@@ -144,7 +144,8 @@ def weighted_step(kind: str, cfg: GroupConfig, state, grad, weight,
   if cfg.type == "local_vector":
     assert basis is not None, "basis is required for local_vector optimizer"
     inv_basis = jnp.linalg.inv(basis)
-    grad = jnp.einsum("bij,bj->bi", inv_basis, grad)
+    grad = jnp.einsum("bij,bj->bi", inv_basis, grad,
+                      precision=jax.lax.Precision.HIGHEST)
 
   lr_step, new_state = _UPDATES[kind](cfg, state, grad, weight, total_weight)
 
@@ -153,7 +154,8 @@ def weighted_step(kind: str, cfg: GroupConfig, state, grad, weight,
     lr_step = jnp.clip(lr_step, -max_step, max_step)
 
   if cfg.type == "local_vector":
-    lr_step = jnp.einsum("bij,bj->bi", basis, lr_step)
+    lr_step = jnp.einsum("bij,bj->bi", basis, lr_step,
+                         precision=jax.lax.Precision.HIGHEST)
 
   if mask_lr is not None:
     lr_step = lr_step * mask_lr.reshape(1, -1)

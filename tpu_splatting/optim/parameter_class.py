@@ -1,7 +1,7 @@
 """ParameterClass: parameters + row-synchronised optimizer state.
 
-TPU-native equivalent of the reference ParameterClass
-(/root/reference/taichi_splatting/optim/parameter_class.py:12-246): a dict of
+Equivalent of the reference ParameterClass
+(taichi_splatting/optim/parameter_class.py:12-246): a dict of
 mixed parameter/non-parameter arrays whose optimizer state stays row-aligned
 under point edits — boolean/index filtering, appending (for split/prune
 training) — plus checkpointing.

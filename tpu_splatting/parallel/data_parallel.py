@@ -1,19 +1,19 @@
-"""Multi-chip parallelism: camera-batch data parallel + point sharding.
+"""Multi-device parallelism: camera-batch data parallel + point sharding.
 
 The reference is strictly single-GPU/single-process (SURVEY.md §2.9); this
-module is the scale-out axis the TPU build adds: a ``jax.sharding.Mesh``
-over chips with
+module adds the scale-out axis: a ``jax.sharding.Mesh`` over a flat list of
+devices (cards joined all to all, e.g. by NVLink) with
 
 * **camera data parallelism** — a batch of cameras sharded over the mesh,
-  gaussians replicated, losses/gradients combined with ``psum`` over ICI
-  (the natural axis for multi-view splatting training), and
+  gaussians replicated, losses/gradients combined with ``psum`` (NCCL
+  all-reduce on GPUs; the natural axis for multi-view splatting training),
+  and
 
 * **point sharding** for the embarrassingly-parallel stages (projection /
-  SH shading): gaussians sharded over chips, followed by an ``all_gather``
-  before tile mapping.
+  SH shading): gaussians sharded over devices, followed by an
+  ``all_gather`` before tile mapping.
 
-Everything compiles for any mesh size; tests and the driver's dry-run use
-virtual CPU devices.
+Everything compiles for any mesh size; tests use virtual CPU devices.
 """
 
 from __future__ import annotations
@@ -44,35 +44,32 @@ def make_mesh(n_devices: Optional[int] = None,
 
 def _render_loss(gaussians: Gaussians3D, projection, t_camera_world,
                  target, camera_template: CameraParams,
-                 config: RasterConfig, max_overlaps: int, probe=None):
+                 config: RasterConfig, max_overlaps: int, use_sh: bool):
   camera = camera_template.replace(
       projection=projection, T_camera_world=t_camera_world)
   out = render_gaussians(gaussians, camera, config,
-                         max_overlaps=max_overlaps, probe=probe)
-  vis = out.points._visibility
-  if vis is None:
-    # stream path: visibility arrives as the probe's cotangent instead
-    vis = jnp.zeros(gaussians.position.shape[0], gaussians.position.dtype)
-  return jnp.mean((out.image - target) ** 2), vis
+                         max_overlaps=max_overlaps, use_sh=use_sh)
+  return jnp.mean((out.image - target) ** 2), out.points.visibility
 
 
 def data_parallel_loss(mesh: Mesh, camera_template: CameraParams,
                        config: RasterConfig, max_overlaps: int,
-                       axis_name: str = "data"):
+                       axis_name: str = "data", use_sh: bool = False):
   """Mean loss + aggregated per-point visibility over a sharded camera batch.
 
   gaussians: replicated; projections (B, 4), poses (B, 4, 4), targets
-  (B, H, W, C): sharded on the batch axis.  Returns a callable computing
-  ``(loss, visibility)`` — use with ``jax.grad(..., has_aux=True)``; the
-  psums over ICI make both the gradients and the (N,) visibility (summed
-  over every camera in the global batch) replicated.
+  (B, H, W, C): sharded on the batch axis; ``config`` must compute
+  visibility.  Returns a callable computing ``(loss, visibility)`` — use
+  with ``jax.grad(..., has_aux=True)``; the psums make both the gradients
+  and the (N,) visibility (summed over every camera in the global batch)
+  replicated.
   """
 
-  def per_shard(gaussians, probe, projections, poses, targets):
+  def per_shard(gaussians, projections, poses, targets):
     def camera_loss(args):
       proj, pose, target = args
       return _render_loss(gaussians, proj, pose, target, camera_template,
-                          config, max_overlaps, probe=probe)
+                          config, max_overlaps, use_sh)
 
     losses, vis = jax.lax.map(camera_loss, (projections, poses, targets))
     total = jax.lax.psum(jnp.sum(losses), axis_name)
@@ -82,7 +79,7 @@ def data_parallel_loss(mesh: Mesh, camera_template: CameraParams,
 
   return shard_map(
       per_shard, mesh=mesh,
-      in_specs=(P(), P(), P(axis_name), P(axis_name), P(axis_name)),
+      in_specs=(P(), P(axis_name), P(axis_name), P(axis_name)),
       out_specs=(P(), P()),
       check_vma=False)
 
@@ -90,33 +87,25 @@ def data_parallel_loss(mesh: Mesh, camera_template: CameraParams,
 def make_train_step(mesh: Mesh, camera_template: CameraParams,
                     config: RasterConfig, parameter_groups: Dict[str,
                                                                  GroupConfig],
-                    max_overlaps: int, axis_name: str = "data"):
-  """Data-parallel training step: per-camera losses on each chip, psum'd
+                    max_overlaps: int, axis_name: str = "data",
+                    use_sh: bool = False):
+  """Data-parallel training step: per-camera losses on each device, psum'd
   gradients, visibility-aware update driven by the per-point visibility
   aggregated (psum) across the whole camera batch."""
   import dataclasses
   config = dataclasses.replace(config, compute_visibility=True)
-  from ..rasterizer.stream_function import probe_width
-  pw = probe_width(config)
   loss_fn = data_parallel_loss(mesh, camera_template, config, max_overlaps,
-                               axis_name)
+                               axis_name, use_sh)
   optimizer = VisibilityAwareLaProp(parameter_groups)
 
   @jax.jit
   def train_step(tensors: Dict[str, jnp.ndarray], opt_state,
                  projections, poses, targets):
-    n = tensors["position"].shape[0]
-    probe = jnp.zeros((n, pw), tensors["position"].dtype)
+    def wrapped(tensors):
+      return loss_fn(Gaussians3D(**tensors), projections, poses, targets)
 
-    def wrapped(tensors, probe):
-      gaussians = Gaussians3D(**tensors)
-      return loss_fn(gaussians, probe, projections, poses, targets)
-
-    (loss, fwd_vis), (grads, g_probe) = jax.value_and_grad(
-        wrapped, argnums=(0, 1), has_aux=True)(tensors, probe)
-    # visibility: forward product on the sorted pipeline, probe cotangent
-    # on the stream pipeline — exactly one of the two is nonzero
-    visibility = fwd_vis + (g_probe[:, 0] if pw else 0.0)
+    (loss, visibility), grads = jax.value_and_grad(
+        wrapped, has_aux=True)(tensors)
     new_tensors, new_state = optimizer.step(tensors, grads, opt_state,
                                             visibility)
     return new_tensors, new_state, loss
@@ -126,8 +115,8 @@ def make_train_step(mesh: Mesh, camera_template: CameraParams,
 
 def sharded_projection(mesh: Mesh, camera: CameraParams,
                        config: RasterConfig, axis_name: str = "data"):
-  """Point-sharded projection + all_gather (ICI): each chip projects its
-  shard of gaussians, results gathered for the (per-chip) rasterizer."""
+  """Point-sharded projection + all_gather: each device projects its
+  shard of gaussians, results gathered for the (per-device) rasterizer."""
   from ..perspective.projection import project_to_image
 
   def per_shard(gaussians: Gaussians3D):

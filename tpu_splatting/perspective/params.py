@@ -1,7 +1,7 @@
 """Camera parameters (pytree dataclass).
 
-TPU-native equivalent of the reference CameraParams
-(/root/reference/taichi_splatting/perspective/params.py:9-105).  The tensors
+Equivalent of the reference CameraParams
+(taichi_splatting/perspective/params.py:9-105).  The tensors
 (projection, pose) are pytree leaves so gradients flow to camera intrinsics
 and pose exactly as in the reference (projection.py:186-188); image size and
 clip planes are static metadata.
@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclass
@@ -61,16 +63,18 @@ class CameraParams:
   def T_image_world(self) -> jnp.ndarray:
     k44 = jnp.eye(4, dtype=self.T_camera_world.dtype).at[:3, :3].set(
         self.T_image_camera)
-    return k44 @ self.T_camera_world
+    return jnp.matmul(k44, self.T_camera_world, precision=_HIGHEST)
 
   @property
   def camera_position(self) -> jnp.ndarray:
     r = self.T_camera_world[:3, :3]
     t = self.T_camera_world[:3, 3]
-    return -(r.T @ t)
+    return -jnp.matmul(r.T, t, precision=_HIGHEST)
 
   def transformed(self, t: jnp.ndarray) -> "CameraParams":
-    return dataclasses.replace(self, T_camera_world=t @ self.T_camera_world)
+    return dataclasses.replace(
+        self, T_camera_world=jnp.matmul(t, self.T_camera_world,
+                                        precision=_HIGHEST))
 
   def scale_image(self, scale: float) -> "CameraParams":
     image_size = (int(self.image_size[0] * scale),

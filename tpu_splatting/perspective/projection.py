@@ -1,7 +1,7 @@
 """Perspective EWA projection of 3D gaussians to image space (pure jnp).
 
-TPU-native re-design of the reference projection op
-(/root/reference/taichi_splatting/perspective/projection.py:32-119 and
+Re-design of the reference projection op
+(taichi_splatting/perspective/projection.py:32-119 and
 taichi_lib/generic.py:96-158).  Differences from the reference, by design:
 
 * **No compaction / host sync.** The reference compacts visible points with
@@ -21,12 +21,15 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 
 from ..data_types import Gaussians3D, RasterConfig
 from ..lib import gaussian2d as g2d
 from ..lib import transforms
 from .params import CameraParams
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def project_gaussians(
@@ -54,7 +57,9 @@ def project_gaussians(
   t_cw = T_camera_world[:3, 3]
   image_size_f = jnp.asarray(image_size, dtype=dtype)
 
-  in_camera = position @ r_cw.T + t_cw
+  # geometry in full f32: a TF32 product (the GPU default for f32 dots)
+  # moves splats by pixels at scene depths
+  in_camera = jnp.matmul(position, r_cw.T, precision=_HIGHEST) + t_cw
   z = in_camera[:, 2]
 
   near, far = depth_range
@@ -70,7 +75,7 @@ def project_gaussians(
   # EWA: m = J @ W @ R(q) S; cov2d = m m^T  (generic.py:116-143)
   rot_n = transforms.normalize(rotation)
   rs = transforms.scaled_quat_to_mat(rot_n, jnp.exp(log_scaling))  # (N,3,3)
-  a = jnp.einsum("ij,njk->nik", r_cw, rs)                          # W @ RS
+  a = jnp.einsum("ij,njk->nik", r_cw, rs, precision=_HIGHEST)     # W @ RS
 
   fx_z = f[0] / z_safe
   fy_z = f[1] / z_safe
@@ -140,5 +145,5 @@ def unproject_points(uv: jnp.ndarray, depth: jnp.ndarray,
   t_world_image = jnp.linalg.inv(T_image_world)
   depth = depth if depth.ndim == uv.ndim else depth[..., None]
   homog = jnp.concatenate([uv * depth, depth, jnp.ones_like(depth)], -1)
-  world = homog @ t_world_image.T
+  world = jnp.matmul(homog, t_world_image.T, precision=_HIGHEST)
   return world[..., :3] / world[..., 3:4]

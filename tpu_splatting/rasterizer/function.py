@@ -1,20 +1,14 @@
-"""Differentiable rasterization API (custom_vjp around the Pallas kernels).
+"""Differentiable rasterization API (custom_vjp around the raster kernels).
 
-TPU-native equivalent of the reference autograd wrapper
-(/root/reference/taichi_splatting/rasterizer/function.py:28-165).  Notable
-design differences:
+Equivalent of the reference autograd wrapper
+(taichi_splatting/rasterizer/function.py:28-165).  Notable design
+differences:
 
-* **No per-overlap gather, ever.**  The tile mapper sorts the candidate
-  domain with point/feature rows riding the sort as payload (XLA's sort
-  moves payload columns almost for free on TPU, while random row gathers
-  run ~600x off HBM bandwidth); the Pallas window-copy kernel lays the
-  sorted rows out chunk-aligned with one contiguous DMA per chunk.
-
-* **No atomics, no scatter.**  Per-overlap gradients are written
-  contiguously by the backward kernel (the reference uses warp-reduced
-  atomics, backward.py:199-224), sorted by point id (payload riding again)
-  and reduced by the sorted-segment-sum Pallas kernel: one-hot matmuls on
-  the MXU over contiguous input windows.
+* **Rows come out of the sort.**  The tile mapper sorts the candidate
+  domain with the point and feature rows riding the sort as payload, so the
+  kernels read each tile's rows as one contiguous range; only a mapping
+  built without features (or with another feature width, as the
+  median-depth pass) gathers its rows here.
 
 * **image_alpha is differentiable.**  The alpha image is composited as an
   extra channel inside the kernel (the reference marks it
@@ -33,10 +27,15 @@ design differences:
   ``use_alpha_blending`` flag never reaches backward.py), and its
   no-blending gradcheck is disabled (tests/test_rasterizer.py:92-101).  We
   stop gradients instead of returning wrong ones.
+
+The Pallas kernels of ``kernels.py`` always run.  ``raster_impl`` is a
+hook for the tests and ``chip_smoke.py`` only: it traces the plain XLA
+reference of ``ref_lib.raster_plain`` in their place, to compare the two.
 """
 
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
 
@@ -45,9 +44,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..data_types import RasterConfig
-from ..mapper.tile_mapper import TileMapping, map_to_tiles, tile_shape
+from ..mapper.tile_mapper import TileMapping, map_to_tiles
 from . import kernels
-from .layout import segment_sum_sorted, window_copy
 
 
 class RasterOut(NamedTuple):
@@ -57,125 +55,150 @@ class RasterOut(NamedTuple):
   point_heuristic: Optional[jnp.ndarray]  # (N, 2) — via probe gradient
   visibility: Optional[jnp.ndarray]       # (N,)
   num_overflow: Optional[jnp.ndarray] = None  # () i32 — rows dropped by
-  # static capacity clamps when the op built its own mapping (assert == 0
-  # once per scene family; resize via calibrate_stream / max_overlaps)
+  # static capacity clamps when the op built its own mapping (assert == 0;
+  # raise max_overlaps / big_capacity otherwise)
+
+
+# (forward, backward) implementations, keyed by name
+_IMPLS = {"pallas": (kernels.forward, kernels.backward)}
+_impl = {"forward": "pallas", "backward": "pallas"}
+
+
+def _impl_fns():
+  if "plain" not in _IMPLS:
+    from ..ref_lib import raster_plain
+    _IMPLS["plain"] = (raster_plain.forward, raster_plain.backward)
+  return _IMPLS[_impl["forward"]][0], _IMPLS[_impl["backward"]][1]
+
+
+@contextlib.contextmanager
+def raster_impl(forward: str = "pallas", backward: str = "pallas"):
+  """Test hook: trace the rasterizer with the plain reference ("plain")
+  in place of the Pallas kernels ("pallas") inside this block.  It applies
+  when a function is traced, so jit a fresh function inside the block."""
+  old = dict(_impl)
+  _impl.update(forward=forward, backward=backward)
+  try:
+    yield
+  finally:
+    _impl.update(old)
 
 
 def _float0(x):
   return np.zeros(x.shape, jax.dtypes.float0)
 
 
-def _kernel_inputs(mapping: TileMapping, gaussians2d, features):
-  """(sorted_rows, chunk_src, chunk_cnt) for the raster kernels.
-
-  Fast path: the mapper's sorted payload feeds the kernels directly (the
-  in-kernel window fetch does the chunk layout).  Fallback (mapping built
-  without features, or with a different feature width — e.g. the
-  median-depth second pass): XLA-gather a chunk-aligned buffer and use
-  identity windows."""
-  g = mapping.chunk_size
+def _sorted_rows(mapping: TileMapping, gaussians2d, features):
+  """(P, 7 + F) rows in sorted overlap order: the mapper's payload when it
+  carries these features, else gathered by ``overlap_to_point``."""
   if (mapping.sorted_payload is not None
       and mapping.feature_size == features.shape[1]):
-    return mapping.sorted_payload, mapping.chunk_src, mapping.chunk_cnt
-  n = mapping.num_points
+    return mapping.sorted_payload
   rows = jnp.concatenate([gaussians2d, features.astype(gaussians2d.dtype)],
                          -1)
-  rows_ext = jnp.concatenate(
-      [rows, jnp.zeros((1, rows.shape[1]), rows.dtype)], 0)
-  pid = mapping.point_id_chunked
-  chunked = rows_ext[pid]
-  # identity windows: chunk k reads rows [k*g, (k+1)*g); one block of slack
-  chunked = jnp.concatenate(
-      [chunked, jnp.zeros((g, rows.shape[1]), rows.dtype)], 0)
-  k = mapping.num_chunks
-  src = jnp.arange(k, dtype=jnp.int32) * g
-  return chunked, src, mapping.chunk_cnt
-
-
-def _pid_chunked(mapping: TileMapping):
-  """(A, 1) i32 point ids per chunk slot (null = num_points), via the same
-  window-copy kernel (ids ride BY VALUE — exact in f32 below 2^24; bitcast
-  storage flushes denormal bit patterns to zero on TPU)."""
-  n = mapping.num_points
-  assert n < (1 << 24), "point id exceeds f32 exact-int range"
-  o2p = mapping.overlap_to_point
-  as_f32 = o2p.astype(jnp.float32)[:, None]
-  copied = window_copy(as_f32, mapping.chunk_src, mapping.chunk_cnt,
-                       mapping.chunk_size)
-  pid = copied[:, 0].astype(jnp.int32)
-  # window_copy zero-fills invalid slots; value 0 is a REAL
-  # point id, so rebuild the null sentinel from the validity pattern
-  k = mapping.num_chunks
-  g = mapping.chunk_size
-  r = jnp.arange(g, dtype=jnp.int32)[None, :]
-  valid = (r < mapping.chunk_cnt[:, None]).reshape(-1)
-  return jnp.where(valid, pid, n)
-
-
-def reduce_chunked_to_points(x_chunked: jnp.ndarray, pid: jnp.ndarray,
-                             num_points: int) -> jnp.ndarray:
-  """Sum per-chunk-slot rows (A, C) into per-point rows (N, C): sort rows
-  by point id (payload rides the sort) + sorted-segment-sum on the MXU.
-  Wide rows are reduced in <=15-column groups (packed-lane kernel limit)."""
-  c = x_chunked.shape[1]
-  ops = (pid,) + tuple(x_chunked[:, i] for i in range(c))
-  sorted_ops = jax.lax.sort(ops, num_keys=1)
-  ids = sorted_ops[0]
-  cols = sorted_ops[1:]
-  outs = []
-  for lo in range(0, c, 15):
-    rows_sorted = jnp.stack(cols[lo:lo + 15], -1)
-    outs.append(segment_sum_sorted(rows_sorted, ids, num_points))
-  return jnp.concatenate(outs, -1) if len(outs) > 1 else outs[0]
+  rows = jnp.concatenate([rows, jnp.zeros((1, rows.shape[1]), rows.dtype)])
+  return rows[mapping.overlap_to_point]
 
 
 @lru_cache(maxsize=None)
-def _raster_function(config: RasterConfig, num_tiles: int, tiles_wide: int,
-                     num_points: int, feature_size: int, with_vis: bool):
+def _raster_function(config: RasterConfig, tiles_wide: int, num_points: int,
+                     feature_size: int, with_vis: bool, impl: Tuple):
   """Cached custom_vjp rasterizer specialised on static shape/config
   (the jit analogue of the reference's @cache kernel factories,
   function.py:28-40)."""
   n, f = num_points, feature_size
+  forward_impl, backward_impl = impl
+
+  @jax.named_scope("raster_forward")
+  def run_forward(gaussians2d, features, mapping):
+    rows = _sorted_rows(mapping, gaussians2d, features)
+    image_tiled, vis_rows = forward_impl(rows, mapping.tile_ranges, config,
+                                         tiles_wide, with_vis=with_vis)
+    vis = None
+    if with_vis:
+      vis = kernels.reduce_rows_to_points(jax.lax.stop_gradient(vis_rows),
+                                  mapping.overlap_to_point, n)
+    return rows, image_tiled, vis
 
   @jax.custom_vjp
   def raster(gaussians2d, features, probe, mapping):
-    rows, src, cnt = _kernel_inputs(mapping, gaussians2d, features)
-    return kernels.forward(rows, src, cnt, mapping.chunk_to_tile, config,
-                           num_tiles, tiles_wide, with_vis=with_vis)
+    _, image_tiled, vis = run_forward(gaussians2d, features, mapping)
+    return image_tiled, vis
 
   def fwd(gaussians2d, features, probe, mapping):
-    rows, src, cnt = _kernel_inputs(mapping, gaussians2d, features)
-    image_tiled, vis_chunked = kernels.forward(
-        rows, src, cnt, mapping.chunk_to_tile, config, num_tiles, tiles_wide,
-        with_vis=with_vis)
-    residuals = (rows, src, cnt, image_tiled, mapping)
-    return (image_tiled, vis_chunked), residuals
+    rows, image_tiled, vis = run_forward(gaussians2d, features, mapping)
+    return (image_tiled, vis), (rows, image_tiled, mapping)
 
+  @jax.named_scope("raster_backward")
   def bwd(residuals, cotangents):
-    rows, src, cnt, image_tiled, mapping = residuals
+    rows, image_tiled, mapping = residuals
     g_image_tiled, _g_vis = cotangents   # visibility is non-differentiable
-
-    gout = kernels.backward(
-        rows, image_tiled, g_image_tiled, src, cnt, mapping.chunk_to_tile,
-        config, num_tiles, tiles_wide)
-
-    # reduce per-overlap gradients to points in ONE combined pass
-    # (replaces the reference's warp-reduced atomics, backward.py:199-224)
-    pid = _pid_chunked(mapping)
-    reduced = reduce_chunked_to_points(gout, pid, n)
-    g_gaussians2d = reduced[:, :7]
-    g_features = reduced[:, 7:7 + f]
+    grads = backward_impl(rows, mapping.tile_ranges,
+                          mapping.overlap_to_point, image_tiled,
+                          g_image_tiled, config, tiles_wide, n)
+    dtype = rows.dtype
     if config.compute_point_heuristic:
-      heur_n = reduced[:, 7 + f:7 + f + 2]
+      heur = grads[:, 7 + f:7 + f + 2]
     else:
-      heur_n = jnp.zeros((n, 2), g_gaussians2d.dtype)
-
-    return (g_gaussians2d, g_features.astype(g_gaussians2d.dtype),
-            heur_n.astype(g_gaussians2d.dtype),
-            jax.tree.map(_float0, mapping))
+      heur = jnp.zeros((n, 2), dtype)
+    return (grads[:, :7], grads[:, 7:7 + f].astype(dtype),
+            heur.astype(dtype), jax.tree.map(_float0, mapping))
 
   raster.defvjp(fwd, bwd)
   return raster
+
+
+def detile(image_tiled: jnp.ndarray, tiles_wide: int, tiles_high: int,
+           tile_size: int, image_size: Tuple[int, int]) -> jnp.ndarray:
+  """(T, C, tile_area) -> (H, W, C)."""
+  w_img, h_img = image_size
+  c = image_tiled.shape[1]
+  t = image_tiled.reshape(tiles_high, tiles_wide, c, tile_size, tile_size)
+  full = t.transpose(0, 3, 1, 4, 2).reshape(
+      tiles_high * tile_size, tiles_wide * tile_size, c)
+  return full[:h_img, :w_img]
+
+
+def entile(image: jnp.ndarray, tiles_wide: int, tiles_high: int,
+           tile_size: int) -> jnp.ndarray:
+  """(H, W, C) -> (T, C, tile_area), zero-padding to tile multiples."""
+  h, w, c = image.shape
+  ph = tiles_high * tile_size - h
+  pw = tiles_wide * tile_size - w
+  img = jnp.pad(image, ((0, ph), (0, pw), (0, 0)))
+  t = img.reshape(tiles_high, tile_size, tiles_wide, tile_size, c)
+  return t.transpose(0, 2, 4, 1, 3).reshape(
+      tiles_high * tiles_wide, c, tile_size * tile_size)
+
+
+def tile_mask(image_size: Tuple[int, int], tiles_wide: int,
+              tiles_high: int, tile_size: int) -> jnp.ndarray:
+  """(T, 1, PIX) f32 mask of pixels inside the image — for computing
+  losses directly in tile layout (pad pixels carry rendered content but
+  must not contribute)."""
+  w, h = image_size
+  ones = jnp.ones((h, w, 1), jnp.float32)
+  return entile(ones, tiles_wide, tiles_high, tile_size)
+
+
+def rasterize_tiled(gaussians2d: jnp.ndarray, features: jnp.ndarray,
+                    mapping: TileMapping, config: RasterConfig,
+                    heuristic_probe: Optional[jnp.ndarray] = None):
+  """Rasterize into tile layout.
+
+  Returns (image_tiled (T, F + 1, tile_area) with the alpha image as the
+  last channel, visibility (N,) or None)."""
+  n, f = features.shape
+  assert gaussians2d.shape == (n, 7), gaussians2d.shape
+  if heuristic_probe is None:
+    heuristic_probe = jnp.zeros((n, 2), gaussians2d.dtype)
+  with_vis = config.compute_visibility or config.compute_point_heuristic
+  raster = _raster_function(config, mapping.tiles_wide, n, f, with_vis,
+                            _impl_fns())
+  image_tiled, vis = raster(gaussians2d, features, heuristic_probe, mapping)
+  if not config.use_alpha_blending:
+    image_tiled = jax.lax.stop_gradient(image_tiled)
+  return image_tiled, vis
 
 
 def rasterize_with_tiles(
@@ -196,90 +219,27 @@ def rasterize_with_tiles(
   ``heuristic_probe`` is an all-zeros (N, 2) array; its gradient under any
   loss equals the reference's point heuristics (prune_cost, split_score).
   """
-  n, f = features.shape
-  assert gaussians2d.shape == (n, 7), gaussians2d.shape
-  dtype = gaussians2d.dtype
-  tw, th = tile_shape(image_size, config.tile_size)
-  num_tiles = tw * th
-  ts = config.tile_size
-
-  if heuristic_probe is None:
-    heuristic_probe = jnp.zeros((n, 2), dtype)
-
-  with_vis = config.compute_visibility or config.compute_point_heuristic
-  raster = _raster_function(config, num_tiles, tw, n, f, with_vis)
-  image_tiled, vis_chunked = raster(
-      gaussians2d, features, heuristic_probe, mapping)
-
-  if not config.use_alpha_blending:
-    image_tiled = jax.lax.stop_gradient(image_tiled)
-    vis_chunked = jax.lax.stop_gradient(vis_chunked)
-
-  # de-tile: (T+1, F+1, PIX) -> (H, W, F+1)
-  w_img, h_img = image_size
-  tiled = image_tiled[:num_tiles].reshape(th, tw, f + 1, ts, ts)
-  full = tiled.transpose(0, 3, 1, 4, 2).reshape(th * ts, tw * ts, f + 1)
-  full = full[:h_img, :w_img]
-
-  image = full[..., :f]
-  image_alpha = full[..., f]
-
-  visibility = None
-  if with_vis:
-    pid = _pid_chunked(mapping)
-    # stop the gradient BEFORE the reduction: the scalar-prefetch Pallas
-    # kernels have no JVP rule, and visibility is non-differentiable anyway
-    visibility = reduce_chunked_to_points(
-        jax.lax.stop_gradient(vis_chunked), pid, n)[:, 0]
-
-  return RasterOut(image=image, image_weight=image_alpha,
-                   point_heuristic=None, visibility=visibility)
+  f = features.shape[1]
+  image_tiled, vis = rasterize_tiled(gaussians2d, features, mapping, config,
+                                     heuristic_probe)
+  full = detile(image_tiled, mapping.tiles_wide, mapping.tiles_high,
+                config.tile_size, image_size)
+  return RasterOut(image=full[..., :f], image_weight=full[..., f],
+                   point_heuristic=None, visibility=vis)
 
 
 def rasterize(gaussians2d: jnp.ndarray, depth: jnp.ndarray,
               features: jnp.ndarray, image_size: Tuple[int, int],
               config: RasterConfig, use_depth16: bool = False,
               max_overlaps: Optional[int] = None,
-              heuristic_probe: Optional[jnp.ndarray] = None,
-              probe: Optional[jnp.ndarray] = None) -> RasterOut:
-  """Map to tiles + rasterize (reference function.py:133-165).
-
-  Routes through the tile-stream pipeline when ``config.pipeline`` allows
-  (the fast path), else the sorted-overlap pipeline.  On the stream path
-  per-point outputs are backward-pass products: ``visibility`` is None in
-  the forward (pass a full ``probe`` of width ``probe_width(config)`` —
-  columns [visibility, prune, split] — and read its gradient, or use the
-  renderer's render_with_heuristics helpers); ``heuristic_probe``'s
-  gradient carries (prune_cost, split_score) on both pipelines.
-  """
+              heuristic_probe: Optional[jnp.ndarray] = None) -> RasterOut:
+  """Map to tiles + rasterize (reference function.py:133-165)."""
   assert gaussians2d.shape[0] == depth.shape[0] == features.shape[0]
-  from .stream_function import (probe_width, stream_eligible,
-                                stream_map_with_config,
-                                stream_rasterize_with_mapping)
-
-  if stream_eligible(config, image_size):
-    n = gaussians2d.shape[0]
-    mapping = stream_map_with_config(
-        jax.lax.stop_gradient(gaussians2d), jax.lax.stop_gradient(depth),
-        jax.lax.stop_gradient(features), image_size, config)
-    pw = probe_width(config)
-    if probe is None and heuristic_probe is not None and pw >= 2:
-      # heur probe contract: prepend the visibility column so the caller's
-      # (N, 2) probe still receives (prune, split) through the concat vjp
-      probe = jnp.concatenate(
-          [jnp.zeros((n, pw - 2), gaussians2d.dtype), heuristic_probe], -1)
-    image, image_weight = stream_rasterize_with_mapping(
-        gaussians2d, features, mapping, image_size, config, probe=probe)
-    return RasterOut(image=image, image_weight=image_weight,
-                     point_heuristic=None, visibility=None,
-                     num_overflow=mapping.num_overflow)
-
   mapping = map_to_tiles(
       jax.lax.stop_gradient(gaussians2d), jax.lax.stop_gradient(depth),
       image_size=image_size, config=config, max_overlaps=max_overlaps,
       use_depth16=use_depth16,
       features=jax.lax.stop_gradient(features))
-
   return rasterize_with_tiles(
       gaussians2d, features, mapping, image_size=image_size, config=config,
       heuristic_probe=heuristic_probe)._replace(

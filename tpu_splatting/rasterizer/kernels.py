@@ -1,57 +1,36 @@
-"""Pallas TPU kernels for tile-based alpha-compositing rasterization.
+"""GPU kernels for tile-based alpha-compositing rasterization (Pallas, Triton).
 
-TPU-native re-design of the reference CUDA rasterizer
-(/root/reference/taichi_splatting/rasterizer/forward.py:22-137 and
-backward.py:50-227).  The reference launches one thread block per tile with
-shared-memory staging and warp-reduced atomics; neither shared-memory
-cooperation nor cheap global atomics exist on TPU, so the computation is
-re-architected as a **pipelined scan over fixed-size overlap chunks**
-(flash-attention style):
+The layout is the reference CUDA rasterizer's
+(taichi_splatting/rasterizer/forward.py:43-84, backward.py:50-227): one
+program per image tile, each walking its own depth-sorted overlap range
+``tile_ranges[t]`` of the mapper's sorted rows, with the tile's pixels held
+in registers.  Rows are loaded in blocks of ``BLOCK`` with masks (no
+alignment or padding of the sorted domain is needed), and a program stops
+as soon as every pixel of its tile is saturated.  Per-row outputs start as
+zeros (an aliased zero input), so the rows a program never reaches, past
+its stop or outside every tile range, contribute nothing when reduced to
+points.
 
-* The tile mapper sorts overlaps tile-major/depth-ordered with the point
-  and feature rows riding the sort; the kernels window the sorted rows per
-  chunk in-kernel (two g-aligned BlockSpec fetches + dynamic scratch
-  select).  Null slots are masked through the alpha threshold, which
-  provably zeroes their weights, visibility, and every gradient.
+Within a block, compositing runs in log-transmittance space: the exclusive
+cumulative sum of ``log(1 - alpha)`` down the block gives every row's
+transmittance at once.  One row per step is the reference's serial
+per-point loop; two rows per step measured slightly faster on an H100
+(PERF.md, "Kernel choices").  Saturation is a transmittance **freeze**
+(``log T <= log(1 - saturate_threshold)`` masks every later contribution),
+applied identically in forward and backward, so the custom_vjp is the exact
+gradient of the forward (the reference's backward applies this stop,
+backward.py:154-160, while its forward does not).
 
-* The Pallas grid iterates chunks.  Inputs stream linearly from HBM (auto
-  double-buffered); each output image block stays resident in VMEM while
-  its tile's chunks are processed (revisiting semantics).  Per-tile
-  transmittance state lives in VMEM scratch, re-seeded at tile boundaries.
+The backward walks the rows front to back again with the reference's
+"remaining feature" trick (backward.py:166-196) in scan form: a running
+``s = sum_c g_c * remaining_c`` per pixel, seeded from the forward image,
+replaces the per-pixel remaining-feature vectors.  The kernel writes one
+gradient row per overlap and XLA's scatter-add reduces them to points;
+this measured faster than the reference's per-point atomics
+(backward.py:199-224) done in the kernel.
 
-* **The MXU does the heavy lifting** (a v5e has ~50x more MXU than VPU
-  throughput): the log-pdf of all G points at all tile pixels is a single
-  quadratic form ``(G,6) @ (6,PIX)`` over the monomial basis
-  [px^2, px*py, py^2, px, py, 1] in tile-local coordinates — point alpha is
-  folded into the constant term so ONE matmul + ONE exp yields the
-  compositing alpha.  The sequential alpha compositing is vectorised in
-  closed form **in log-transmittance space**: the exclusive cumulative sum
-  of log(1-a) is a strict-lower-triangular matmul on the MXU (replacing a
-  7-pass Hillis-Steele VPU scan), and the per-tile carry is stored as
-  log T.  Feature + alpha-channel compositing is one ``(F+1,G) x (G,PIX)``
-  contraction (an all-ones row folds the alpha channel into the feature
-  matmul); every per-point gradient reduction in the backward is factored
-  through pixel moments ``(G,PIX) @ (PIX,3)``.
-
-* f32 matmuls use exact (HIGHEST) precision where accuracy feeds the
-  compositing exponent or gradients, and 1-pass bf16 (DEFAULT) for feature
-  contractions (Mosaic lowers only those two).  CPU interpret mode (tests,
-  f64 gradcheck) is unaffected — precision hints only change TPU MXU pass
-  counts.
-
-* Saturation is a transmittance **freeze** (``log T <= log(1 -
-  saturate_threshold)`` masks all later contributions), giving a closed-
-  form forward that is exactly consistent with the backward — the
-  reference's backward applies this stop (backward.py:154-160) while its
-  forward does not.  Fully saturated tiles skip the remaining chunks'
-  compute entirely.
-
-* The backward re-derives per-point gradients with the reference's
-  "remaining feature" trick (backward.py:166-196) in scan form: a running
-  ``s = sum_c g * remaining`` scalar per pixel replaces the per-pixel
-  remaining-feature vectors, so no (G, PIX, F) tensor is ever materialised.
-  Per-overlap gradients are written contiguously (no atomics) and reduced
-  to points by the sorted-segment-sum kernel (layout.py) outside.
+On the CPU the same kernels run in Pallas interpret mode (tests, f64
+gradchecks); ``ref_lib.raster_plain`` is the plain XLA version of both.
 """
 
 from __future__ import annotations
@@ -63,137 +42,44 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..data_types import RasterConfig
 from ..utils.interpret import use_interpret
 
+# Overlap rows composited per loop step, and warps per tile program, as
+# measured fastest on an H100 (PERF.md, "Kernel choices").
+BLOCK = 2
+FORWARD_WARPS = 1
+BACKWARD_WARPS = 2
+
 _NEG_BIG = -3.0e38   # "log 0" fill that stays finite in f32 arithmetic
 
 
-
-
-def _mm(a, b, contract=((1,), (0,)), precision=jax.lax.Precision.HIGHEST):
-  # NB: Mosaic only lowers DEFAULT (1-pass bf16) and HIGHEST (6-pass exact
-  # f32) dot precisions; HIGH is rejected in-kernel.
-  return jax.lax.dot_general(
-      a, b, dimension_numbers=(contract, ((), ())),
-      preferred_element_type=a.dtype,
-      precision=precision)
-
-
-def _cumsum_excl_mm(x: jnp.ndarray) -> jnp.ndarray:
-  """Exclusive cumulative sum along axis 0 as ONE strict-lower-triangular
-  matmul on the MXU (out_i = sum_{j<i} x_j)."""
-  g = x.shape[0]
-  r = jax.lax.broadcasted_iota(jnp.int32, (g, g), 0)
-  c = jax.lax.broadcasted_iota(jnp.int32, (g, g), 1)
-  tri = (c < r).astype(x.dtype)
-  return _mm(tri, x)
-
-
-def _cumsum_incl_mm(x: jnp.ndarray) -> jnp.ndarray:
-  """Inclusive cumulative sum along axis 0 (lower-triangular MXU matmul)."""
-  g = x.shape[0]
-  r = jax.lax.broadcasted_iota(jnp.int32, (g, g), 0)
-  c = jax.lax.broadcasted_iota(jnp.int32, (g, g), 1)
-  tri = (c <= r).astype(x.dtype)
-  return _mm(tri, x)
-
-
-def _log_cut(config: RasterConfig) -> float:
+def log_cut(config: RasterConfig) -> float:
   """log(1 - saturate_threshold): the transmittance freeze cut in log space.
   A non-positive cut (saturate_threshold >= 1) disables freezing."""
   cut = 1.0 - config.saturate_threshold
   return math.log(cut) if cut > 0.0 else _NEG_BIG
 
 
-def _pixel_basis(pix: int, tile_size: int, dtype):
-  """Tile-local pixel-centre basis rows.
-
-  Returns (pxl (1,PIX), pyl (1,PIX), basis4 (4,PIX) rows [pxl, pyl, 1, 0],
-  basis3 (3,PIX) rows [pxl, pyl, 1], basis6 (6,PIX) rows
-  [pxl^2, pxl*pyl, pyl^2, pxl, pyl, 1]).  Local coordinates keep the
-  quadratic form numerically tight (global pixel coords would cancel
-  catastrophically in f32)."""
-  p = jax.lax.broadcasted_iota(jnp.int32, (1, pix), 1)
-  pxl = (p % tile_size).astype(dtype) + 0.5
-  pyl = (p // tile_size).astype(dtype) + 0.5
-  one = jnp.ones((1, pix), dtype)
-  zero = jnp.zeros((1, pix), dtype)
-  basis4 = jnp.concatenate([pxl, pyl, one, zero], 0)
-  basis3 = jnp.concatenate([pxl, pyl, one], 0)
-  basis6 = jnp.concatenate([pxl * pxl, pxl * pyl, pyl * pyl, pxl, pyl, one],
-                           0)
-  return pxl, pyl, basis4, basis3, basis6
+def _pixel_centres(t, tile_size: int, tiles_wide: int, dtype):
+  """(1, PIX) image-space pixel centres of tile ``t``."""
+  p = jax.lax.broadcasted_iota(jnp.int32, (1, tile_size * tile_size), 1)
+  px = (t % tiles_wide) * tile_size + p % tile_size
+  py = (t // tiles_wide) * tile_size + p // tile_size
+  return px.astype(dtype) + 0.5, py.astype(dtype) + 0.5
 
 
-def _unpack_rows(rows, t, tile_size: int, tiles_wide: int, dtype):
-  """Split a (G, 7+F) chunk into components, mean in tile-local coords."""
-  ox = ((t % tiles_wide) * tile_size).astype(dtype)
-  oy = ((t // tiles_wide) * tile_size).astype(dtype)
-  mlx = rows[:, 0:1] - ox
-  mly = rows[:, 1:2] - oy
-  ax = rows[:, 2:3]
-  ay = rows[:, 3:4]
-  sx = rows[:, 4:5]
-  sy = rows[:, 5:6]
-  point_alpha = rows[:, 6:7]
-  feats = rows[:, 7:]
-  return mlx, mly, ax, ay, sx, sy, point_alpha, feats
-
-
-def _qf_alpha_raw(mlx, mly, ax, ay, sx, sy, point_alpha, basis6):
-  """Raw compositing alpha ``point_alpha * pdf`` as ONE matmul + ONE exp.
-
-  -0.5(u^2+v^2) is a quadratic polynomial in pixel coords; log point_alpha
-  folds into the constant term.  Null (all-zero) rows produce
-  exp(log 1e-30) ~ 0, i.e. compositing no-ops."""
-  isx2 = 1.0 / jnp.maximum(sx * sx, 1e-24)
-  isy2 = 1.0 / jnp.maximum(sy * sy, 1e-24)
-  a2 = ax * ax
-  b2 = ay * ay
-  cxx = -0.5 * (a2 * isx2 + b2 * isy2)
-  cyy = -0.5 * (b2 * isx2 + a2 * isy2)
-  cxy = -(ax * ay * (isx2 - isy2))
-  c_px = -(2.0 * cxx * mlx + cxy * mly)
-  c_py = -(2.0 * cyy * mly + cxy * mlx)
-  c_1 = (cxx * mlx * mlx + cxy * mlx * mly + cyy * mly * mly
-         + jnp.log(jnp.maximum(point_alpha, 1e-30)))
-  lq = jnp.concatenate([cxx, cxy, cyy, c_px, c_py, c_1], -1)   # (G, 6)
-  return jnp.exp(_mm(lq, basis6))
-
-
-def _lin_uv(mlx, mly, ax, ay, sx, sy, scale: bool):
-  """(G,4) coefficients of the linear forms u, v over [pxl, pyl, 1, 0].
-
-  With ``scale`` the 1/sigma factors are applied (standard frame coords);
-  without, u/v are unscaled (antialias S_sig form)."""
-  isx = 1.0 / jnp.maximum(sx, 1e-12) if scale else jnp.ones_like(sx)
-  isy = 1.0 / jnp.maximum(sy, 1e-12) if scale else jnp.ones_like(sy)
-  zeros = jnp.zeros_like(ax)
-  lu = jnp.concatenate(
-      [ax * isx, ay * isx, -(mlx * ax + mly * ay) * isx, zeros], -1)
-  lv = jnp.concatenate(
-      [-ay * isy, ax * isy, (mlx * ay - mly * ax) * isy, zeros], -1)
-  return lu, lv
-
-
-def _clamp_threshold(a_raw, config, valid_row):
-  """Clamp + threshold; rows beyond the chunk's valid count get alpha 0,
-  which zeroes their compositing weight, visibility, AND every gradient
-  (the backward's mask multiplies everything through alpha_grad)."""
-  return jnp.where((a_raw > config.alpha_threshold) & valid_row,
-                   jnp.minimum(a_raw, config.clamp_max_alpha), 0.0)
-
-
-def _window_rows(a_ref, b_ref, scratch, d, g: int):
-  """Select the g-row window starting at offset d from two consecutive
-  g-aligned blocks (Mosaic: no dynamic_slice on values; go through a
-  scratch ref, whose indexing supports dynamic starts)."""
-  scratch[0:g] = a_ref[...]
-  scratch[g:2 * g] = b_ref[...]
-  return scratch[pl.ds(d, g), :]
+def _load_block(rows_ref, j, end, width: int, block: int = BLOCK):
+  """Rows [j, j + block) of the sorted domain as (block, 1) columns; rows
+  at or past ``end`` load as zeros and are flagged invalid."""
+  r = j + jax.lax.broadcasted_iota(jnp.int32, (block,), 0)
+  valid = r < end
+  cols = [plgpu.load(rows_ref.at[pl.ds(j, block), c], mask=valid,
+                     other=0.0)[:, None]
+          for c in range(width)]
+  return valid, cols
 
 
 def _s_sig(x, s):
@@ -201,432 +87,292 @@ def _s_sig(x, s):
   return 1.0 / (1.0 + jnp.exp(-1.6 * z - 0.07 * z * z * z))
 
 
-def _antialias_pdf(tu, tv, sx, sy):
-  """Pixel-integrated pdf (generic.py:347-357); tu/tv unscaled frame coords."""
-  ix = sx * (_s_sig(tu + 0.5, sx) - _s_sig(tu - 0.5, sx))
-  iy = sy * (_s_sig(tv + 0.5, sy) - _s_sig(tv - 0.5, sy))
-  return 2.0 * jnp.pi * ix * iy
+class _Alpha:
+  """Per (row, pixel) compositing alpha of a block, with the geometry the
+  backward differentiates (generic.py:347-357 for the antialiased pdf)."""
 
-
-# ---------------------------------------------------------------------------
-# Forward kernel
-# ---------------------------------------------------------------------------
-
-
-def _forward_kernel(src_ref, cnt_ref, ct_ref, a_blk_ref, b_blk_ref,
-                    img_ref, *out_and_scratch,
-                    config: RasterConfig, num_tiles: int, tiles_wide: int,
-                    f: int, with_vis: bool):
-  if with_vis:
-    vis_ref, lt_run_ref, win_ref = out_and_scratch
-  else:
-    lt_run_ref, win_ref = out_and_scratch
-    vis_ref = None
-  g = config.chunk_size
-  pix = config.tile_area
-  dtype = img_ref.dtype
-
-  k = pl.program_id(0)
-  t = ct_ref[k]
-  prev_t = ct_ref[jnp.maximum(k - 1, 0)]
-  is_first = jnp.logical_or(k == 0, t != prev_t)
-  is_dummy = t >= num_tiles
-
-  # exact chunk skip: once a tile's transmittance is everywhere below the
-  # freeze cut, later chunks contribute exactly zero (blending mode; the
-  # quantile mode's unfrozen weights still feed visibility, so no skip)
-  if config.use_alpha_blending:
-    lcut = _log_cut(config)
-    saturated = jnp.logical_and(jnp.logical_not(is_first),
-                                jnp.max(lt_run_ref[...]) <= lcut)
-  else:
-    lcut = _NEG_BIG
-    saturated = False
-  active = jnp.logical_not(jnp.logical_or(is_dummy, saturated))
-
-  @pl.when(active)
-  def _():
-    rows = _window_rows(a_blk_ref, b_blk_ref, win_ref, src_ref[k] % g, g)
-    valid_row = jax.lax.broadcasted_iota(
-        jnp.int32, (g, 1), 0) < cnt_ref[k]
-
-    _, _, basis4, _, basis6 = _pixel_basis(pix, config.tile_size, dtype)
-    (mlx, mly, ax, ay, sx, sy, point_alpha,
-     feats) = _unpack_rows(rows, t, config.tile_size, tiles_wide, dtype)
-
+  def __init__(self, cols, px, py, valid, config: RasterConfig):
+    mx, my, ax, ay, sx, sy, pa = cols[:7]
+    # null rows load as zeros: clamp sigma so every term stays finite
+    self.sx = jnp.maximum(sx, 1e-12)
+    self.sy = jnp.maximum(sy, 1e-12)
+    self.ax, self.ay, self.pa = ax, ay, pa
+    self.dx = px - mx
+    self.dy = py - my
+    self.tu = self.dx * ax + self.dy * ay
+    self.tv = self.dy * ax - self.dx * ay
     if config.antialias:
-      # antialias uses unscaled frame coords + the S_sig integral
-      lu, lv = _lin_uv(mlx, mly, ax, ay, sx, sy, scale=False)
-      tu = _mm(lu, basis4)
-      tv = _mm(lv, basis4)
-      a_raw = point_alpha * _antialias_pdf(tu, tv, sx, sy)
+      ix = self.sx * (_s_sig(self.tu + 0.5, self.sx)
+                      - _s_sig(self.tu - 0.5, self.sx))
+      iy = self.sy * (_s_sig(self.tv + 0.5, self.sy)
+                      - _s_sig(self.tv - 0.5, self.sy))
+      self.pdf = (2.0 * jnp.pi) * ix * iy
     else:
-      a_raw = _qf_alpha_raw(mlx, mly, ax, ay, sx, sy, point_alpha, basis6)
+      self.u = self.tu / self.sx
+      self.v = self.tv / self.sy
+      self.pdf = jnp.exp(-0.5 * (self.u * self.u + self.v * self.v))
+    self.a_raw = pa * self.pdf
+    self.a = jnp.where((self.a_raw > config.alpha_threshold)
+                       & valid[:, None],
+                       jnp.minimum(self.a_raw, config.clamp_max_alpha), 0.0)
 
-    a = _clamp_threshold(a_raw, config, valid_row)
 
-    lt_in = jnp.where(is_first, jnp.zeros((1, pix), dtype), lt_run_ref[...])
-    l = jnp.log1p(-a)
-    lt_i = _cumsum_excl_mm(l) + lt_in          # log exclusive transmittance
+def _composite(alpha: _Alpha, lt):
+  """Log-space compositing of one block: per-row log-transmittance before
+  each row, and the block's total log(1 - alpha) per pixel."""
+  l = jnp.log1p(-alpha.a)
+  incl = jnp.cumsum(l, axis=0)
+  return lt[None, :] + (incl - l), jnp.sum(l, axis=0)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _forward_kernel(ranges_ref, rows_ref, *refs, config: RasterConfig,
+                    tiles_wide: int, f: int):
+  # with visibility: (zero vis input, image, vis), else (image,)
+  img_ref, vis_ref = refs[-2:] if len(refs) == 3 else (refs[0], None)
+  t = pl.program_id(0)
+  start = ranges_ref[t, 0]
+  end = ranges_ref[t, 1]
+  dtype = rows_ref.dtype
+  pix = config.tile_area
+  px, py = _pixel_centres(t, config.tile_size, tiles_wide, dtype)
+  blend = config.use_alpha_blending
+  lcut = log_cut(config)
+
+  def cond(carry):
+    j, lt = carry[0], carry[1]
+    if not blend:
+      return j < end
+    return (j < end) & (jnp.max(lt) > lcut)
+
+  def body(carry):
+    j, lt, *acc = carry
+    valid, cols = _load_block(rows_ref, j, end, 7 + f)
+    alpha = _Alpha(cols, px, py, valid, config)
+    lt_i, l_sum = _composite(alpha, lt)
     t_i = jnp.exp(lt_i)
-    lt_end = lt_i[g - 1:g, :] + l[g - 1:g, :]
-
-    if config.use_alpha_blending:
-      w = jnp.where(lt_i > lcut, a * t_i, 0.0)  # freeze-masked weight
-      # alpha channel rides the feature contraction as an all-ones row
-      frow = jnp.concatenate([feats, jnp.ones((g, 1), dtype)], -1)
-      contrib = _mm(frow, w, contract=((0,), (0,)),
-                    precision=jax.lax.Precision.DEFAULT)     # (F+1, PIX)
-      # frozen transmittance carry (first crossing, closed form, log space)
-      lt_new = jnp.maximum(
-          lt_end,
-          jnp.max(jnp.where(lt_i <= lcut, lt_i, _NEG_BIG), 0, keepdims=True))
+    if blend:
+      w = jnp.where(lt_i > lcut, alpha.a * t_i, 0.0)
+      acc = ([acc[c] + jnp.sum(w * cols[7 + c], axis=0) for c in range(f)]
+             + [acc[f] + jnp.sum(w, axis=0)])
     else:
-      # quantile mode (forward.py:105-112): select the feature of the first
-      # point where cumulative weight crosses 1 - saturate_threshold
-      one_minus = 1.0 - a
-      t_incl = t_i * one_minus
+      # quantile mode (forward.py:105-112): the feature of the row where
+      # transmittance crosses saturate_threshold; weights are not frozen
       thr = config.saturate_threshold
-      sel = ((t_incl <= thr) & (t_i > thr)).astype(dtype)
-      w = a * t_i                                           # unfrozen weights
-      contrib = _mm(feats, sel, contract=((0,), (0,)),
-                    precision=jax.lax.Precision.DEFAULT)
-      lt_new = lt_end
+      w = alpha.a * t_i
+      sel = (t_i * (1.0 - alpha.a) <= thr) & (t_i > thr)
+      acc = [acc[c] + jnp.sum(jnp.where(sel, cols[7 + c], 0.0), axis=0)
+             for c in range(f)]
+    if vis_ref is not None:
+      plgpu.store(vis_ref.at[pl.ds(j, BLOCK)], jnp.sum(w, axis=1),
+                  mask=valid)
+    return (j + BLOCK, lt + l_sum, *acc)
 
-    @pl.when(is_first)
-    def _():
-      if config.use_alpha_blending:
-        img_ref[0, :f + 1, :] = contrib
-      else:
-        img_ref[0, :f, :] = contrib
-
-    @pl.when(jnp.logical_not(is_first))
-    def _():
-      if config.use_alpha_blending:
-        img_ref[0, :f + 1, :] += contrib
-      else:
-        img_ref[0, :f, :] += contrib
-
-    if not config.use_alpha_blending:
-      # alpha channel in quantile mode: hit mask (forward.py:135)
-      img_ref[0, f:f + 1, :] = (lt_new < 0.0).astype(dtype)
-
-    if with_vis:
-      vis_ref[...] = jnp.sum(w, 1, keepdims=True)           # (G, 1)
-    lt_run_ref[...] = lt_new
-
-  if with_vis:
-    @pl.when(jnp.logical_not(active))
-    def _():
-      vis_ref[...] = jnp.zeros(vis_ref.shape, vis_ref.dtype)
+  zero = jnp.zeros((pix,), dtype)
+  n_acc = f + 1 if blend else f
+  _, lt, *acc = jax.lax.while_loop(
+      cond, body, (start, zero, *([zero] * n_acc)))
+  if not blend:
+    acc.append((lt < 0.0).astype(dtype))   # hit mask (forward.py:135)
+  for c in range(f + 1):
+    img_ref[t, c, :] = acc[c]
 
 
-def forward(sorted_rows: jnp.ndarray,      # (P + 2g, 7+F) tile-depth sorted
-            chunk_src: jnp.ndarray,        # (K,) window start rows
-            chunk_cnt: jnp.ndarray,        # (K,) valid rows per window
-            chunk_to_tile: jnp.ndarray,    # (K,)
-            config: RasterConfig, num_tiles: int, tiles_wide: int,
-            with_vis: bool = True,
+def forward(sorted_rows: jnp.ndarray, tile_ranges: jnp.ndarray,
+            config: RasterConfig, tiles_wide: int, with_vis: bool = True,
             ) -> Tuple[jnp.ndarray, Optional[jnp.ndarray]]:
-  """Rasterize the sorted overlap rows, windowed per chunk in-kernel.
+  """Composite every tile's sorted overlap rows.
 
-  Each chunk's rows are a contiguous window [chunk_src[k], +chunk_cnt[k])
-  of the sorted domain, fetched as the two covering g-aligned blocks (the
-  reference stages points into shared memory the same way,
-  forward.py:60-79).  Over-fetched rows are masked via alpha.
+  Args:
+    sorted_rows: (P, 7 + F) packed gaussian + feature rows, tile-major and
+      depth-ordered within each tile.
+    tile_ranges: (T, 2) i32 [start, end) of each tile's rows.
 
   Returns:
-    image_tiled: (num_tiles + 1, F+1, tile_area); channel F is alpha, the
-      last tile row is the dummy slot.
-    vis_chunked: (K*g, 1) per-overlap blend weight sums (chunk layout), or
-      None when ``with_vis`` is False (saves the writes + reduction).
+    image_tiled: (T, F + 1, tile_area); channel F is the alpha image.
+    vis_rows: (P,) per-row sum of blend weights (zero for rows a tile
+      never reaches), or None without ``with_vis``.
   """
-  width = sorted_rows.shape[1]
+  assert config.tile_area & (config.tile_area - 1) == 0, (
+      "tile_size must be a power of two")
+  p, width = sorted_rows.shape
   f = width - 7
-  g = config.chunk_size
-  pix = config.tile_area
-  k_chunks = chunk_to_tile.shape[0]
+  num_tiles = tile_ranges.shape[0]
   dtype = sorted_rows.dtype
-
-  kernel = functools.partial(
-      _forward_kernel, config=config, num_tiles=num_tiles,
-      tiles_wide=tiles_wide, f=f, with_vis=with_vis)
-
-  out_specs = [
-      pl.BlockSpec((1, f + 1, pix), lambda k, src, cnt, ct: (ct[k], 0, 0)),
-  ]
-  out_shape = [jax.ShapeDtypeStruct((num_tiles + 1, f + 1, pix), dtype)]
+  out_shape = [jax.ShapeDtypeStruct((num_tiles, f + 1, config.tile_area),
+                                    dtype)]
+  args = [tile_ranges, sorted_rows]
   if with_vis:
-    out_specs.append(pl.BlockSpec((g, 1), lambda k, src, cnt, ct: (k, 0)))
-    out_shape.append(jax.ShapeDtypeStruct((k_chunks * g, 1), dtype))
-
-  grid_spec = pltpu.PrefetchScalarGridSpec(
-      num_scalar_prefetch=3,
-      grid=(k_chunks,),
-      in_specs=[
-          pl.BlockSpec((g, width), lambda k, src, cnt, ct: (src[k] // g, 0)),
-          pl.BlockSpec((g, width),
-                       lambda k, src, cnt, ct: (src[k] // g + 1, 0)),
-      ],
-      out_specs=out_specs,
-      scratch_shapes=[pltpu.VMEM((1, pix), dtype),
-                      pltpu.VMEM((2 * g, width), dtype)],
-  )
+    out_shape.append(jax.ShapeDtypeStruct((p,), dtype))
+    args.append(jnp.zeros((p,), dtype))
 
   out = pl.pallas_call(
-      kernel,
-      grid_spec=grid_spec,
+      functools.partial(_forward_kernel, config=config,
+                        tiles_wide=tiles_wide, f=f),
+      grid=(num_tiles,),
       out_shape=out_shape,
+      input_output_aliases={2: 1} if with_vis else {},
+      backend="triton",
+      compiler_params=plgpu.CompilerParams(num_warps=FORWARD_WARPS,
+                                           num_stages=1),
       interpret=use_interpret(),
-  )(chunk_src, chunk_cnt, chunk_to_tile, sorted_rows, sorted_rows)
-
-  if with_vis:
-    return out[0], out[1]
-  return out[0], None
+      name="raster_forward",
+  )(*args)
+  return out[0], (out[1] if with_vis else None)
 
 
 # ---------------------------------------------------------------------------
-# Backward kernel (alpha-blending mode)
+# Backward (alpha-blending mode)
 # ---------------------------------------------------------------------------
 
 
-def _backward_kernel(src_ref, cnt_ref, ct_ref, a_blk_ref, b_blk_ref,
-                     img_ref, gimg_ref,
-                     gout_ref,
-                     lt_run_ref, s_run_ref, win_ref,
-                     *, config: RasterConfig, num_tiles: int, tiles_wide: int,
-                     f: int):
-  g = config.chunk_size
-  pix = config.tile_area
-  dtype = gout_ref.dtype
-  lcut = _log_cut(config)
-  heur = config.compute_point_heuristic
-
-  k = pl.program_id(0)
-  t = ct_ref[k]
-  prev_t = ct_ref[jnp.maximum(k - 1, 0)]
-  is_first = jnp.logical_or(k == 0, t != prev_t)
-  is_dummy = t >= num_tiles
-  saturated = jnp.logical_and(jnp.logical_not(is_first),
-                              jnp.max(lt_run_ref[...]) <= lcut)
-  active = jnp.logical_not(jnp.logical_or(is_dummy, saturated))
-
-  @pl.when(jnp.logical_not(active))
-  def _():
-    gout_ref[...] = jnp.zeros(gout_ref.shape, gout_ref.dtype)
-
-  @pl.when(active)
-  def _():
-    rows = _window_rows(a_blk_ref, b_blk_ref, win_ref, src_ref[k] % g, g)
-    valid_row = jax.lax.broadcasted_iota(
-        jnp.int32, (g, 1), 0) < cnt_ref[k]
-
-    pxl, pyl, basis4, basis3, basis6 = _pixel_basis(
-        pix, config.tile_size, dtype)
-    (mlx, mly, ax, ay, sx, sy, point_alpha,
-     feats) = _unpack_rows(rows, t, config.tile_size, tiles_wide, dtype)
-
-    antialias = config.antialias
-    if antialias:
-      lu_r, lv_r = _lin_uv(mlx, mly, ax, ay, sx, sy, scale=False)
-      tu = _mm(lu_r, basis4)
-      tv = _mm(lv_r, basis4)
-      a_raw = point_alpha * _antialias_pdf(tu, tv, sx, sy)
-    else:
-      lu, lv = _lin_uv(mlx, mly, ax, ay, sx, sy, scale=True)
-      isx = 1.0 / jnp.maximum(sx, 1e-12)
-      isy = 1.0 / jnp.maximum(sy, 1e-12)
-      u = _mm(lu, basis4)
-      v = _mm(lv, basis4)
-      a_raw = _qf_alpha_raw(mlx, mly, ax, ay, sx, sy, point_alpha, basis6)
-
-    a = _clamp_threshold(a_raw, config, valid_row)
-    clamp_live = (a_raw < config.clamp_max_alpha).astype(dtype)
-
-    gimg = gimg_ref[0]                                    # (F+1, PIX)
-    img = img_ref[0]
-
-    lt_in = jnp.where(is_first, jnp.zeros((1, pix), dtype), lt_run_ref[...])
-    s_in = jnp.where(is_first, jnp.sum(gimg * img, 0, keepdims=True),
-                     s_run_ref[...])
-
-    # replay the forward compositing (log space, MXU scan)
-    one_minus = 1.0 - a
-    l = jnp.log1p(-a)
-    lt_i = _cumsum_excl_mm(l) + lt_in
-    t_i = jnp.exp(lt_i)
-    lt_end = lt_i[g - 1:g, :] + l[g - 1:g, :]
-
-    mask = ((lt_i > lcut) & (a > 0.0)).astype(dtype)
-    w = a * t_i * mask
-
-    # gf = d(pixel)/d(weight): feature channels + the alpha image channel,
-    # as one (F+1)-row contraction (ones row = alpha channel)
-    frow = jnp.concatenate([feats, jnp.ones((g, 1), dtype)], -1)
-    gf = _mm(frow, gimg)                                  # (G, PIX)
-
-    wgf = w * gf
-    # s_i = sum_c g * remaining  (inclusive: current point subtracted)
-    s_i = s_in - _cumsum_incl_mm(wgf)
-
-    alpha_grad = (t_i * gf - s_i / one_minus) * mask      # (G, PIX)
-
-    # gradient w.r.t. the packed gaussian (backward.py:180-194), factored
-    # through pixel moments so the reductions ride the MXU:
-    #   z0 = alpha_grad * clamp_live * a_raw (= pa * pdf * alpha_grad),
-    #   zu = z0 * u,  zv = z0 * v
-    #   each needs (sum, sum*pxl, sum*pyl) -> (G,3) = Z @ basis3^T
-    z0 = alpha_grad * clamp_live * a_raw
-    if antialias:
-      # antialias gradients don't factor through u/v moments; use the
-      # closed forms (generic.py:371-404) with explicit (G,PIX) chains
-      aag = point_alpha * alpha_grad * clamp_live
-      dmx, dmy, dax, day, dsx, dsy = _antialias_grads(
-          tu, tv, sx, sy, pxl - mlx, pyl - mly, ax, ay)
-      g_mx = jnp.sum(aag * dmx, 1, keepdims=True)
-      g_my = jnp.sum(aag * dmy, 1, keepdims=True)
-      g_ax = jnp.sum(aag * dax, 1, keepdims=True)
-      g_ay = jnp.sum(aag * day, 1, keepdims=True)
-      g_sx = jnp.sum(aag * dsx, 1, keepdims=True)
-      g_sy = jnp.sum(aag * dsy, 1, keepdims=True)
-      if heur:
-        split_px = jnp.abs(aag * dmx) + jnp.abs(aag * dmy)
-    else:
-      zu = z0 * u
-      zv = z0 * v
-      mu = _mm(zu, basis3, contract=((1,), (1,)))         # (G,3): [Spx,Spy,S]
-      mv = _mm(zv, basis3, contract=((1,), (1,)))
-
-      su, su_px, su_py = mu[:, 2:3], mu[:, 0:1], mu[:, 1:2]
-      sv, sv_px, sv_py = mv[:, 2:3], mv[:, 0:1], mv[:, 1:2]
-
-      # dp/dmean = p(u isx ax - v isy ay, u isx ay + v isy ax)
-      g_mx = ax * isx * su - ay * isy * sv
-      g_my = ay * isx * su + ax * isy * sv
-      # dp/daxis = p(-u isx dx - v isy dy, -u isx dy + v isy dx),
-      # with sum(z*dx) = sum(z*pxl) - mlx*sum(z)
-      su_dx = su_px - mlx * su
-      su_dy = su_py - mly * su
-      sv_dx = sv_px - mlx * sv
-      sv_dy = sv_py - mly * sv
-      g_ax = -isx * su_dx - isy * sv_dy
-      g_ay = -isx * su_dy + isy * sv_dx
-      # dp/dsigma = p u^2 isx : sum(zu*u) via u's linear form
-      suu = lu[:, 0:1] * su_px + lu[:, 1:2] * su_py + lu[:, 2:3] * su
-      svv = lv[:, 0:1] * sv_px + lv[:, 1:2] * sv_py + lv[:, 2:3] * sv
-      g_sx = isx * suu
-      g_sy = isy * svv
-
-      if heur:
-        dmx_u = u * (isx * ax) - v * (isy * ay)
-        dmy_u = u * (isx * ay) + v * (isy * ax)
-        split_px = jnp.abs(z0 * dmx_u) + jnp.abs(z0 * dmy_u)
-
-    # grad w.r.t. point alpha: sum pdf * alpha_grad * clamp = sum(z0)/pa
-    g_pa = jnp.sum(z0, 1, keepdims=True) / jnp.maximum(point_alpha, 1e-20)
-
-    # feature gradient: sum_px w * g  (backward.py:196-197)
-    g_feats = _mm(w, gimg[:f], contract=((1,), (1,)))     # (G, F)
-
-    cols = [g_mx, g_my, g_ax, g_ay, g_sx, g_sy, g_pa, g_feats]
-    if heur:
-      aag_h = point_alpha * alpha_grad                    # reference form
-      prune = jnp.sum(aag_h * aag_h, 1, keepdims=True)
-      split = jnp.sum(split_px, 1, keepdims=True)
-      cols += [prune, split]
-    gout_ref[...] = jnp.concatenate(cols, -1)
-
-    lt_new = jnp.maximum(
-        lt_end,
-        jnp.max(jnp.where(lt_i <= lcut, lt_i, _NEG_BIG), 0, keepdims=True))
-    lt_run_ref[...] = lt_new
-    s_run_ref[...] = s_i[g - 1:g, :]
-
-
-def _antialias_grads(tu, tv, sx, sy, dx, dy, ax, ay):
-  """Anti-aliased pdf gradients (generic.py:371-404); all (G,PIX)."""
+def _antialias_grads(alpha: _Alpha):
+  """d pdf / d (mean, axis, sigma) of the antialiased pdf
+  (generic.py:371-404); all (rows, PIX)."""
   tau = 2.0 * jnp.pi
-  # null padding rows have sigma 0: clamp so z stays finite (their huge z
-  # drives s to exactly 0/1 and every gradient term to exactly 0, not NaN)
-  sx = jnp.maximum(sx, 1e-12)
-  sy = jnp.maximum(sy, 1e-12)
+  sx, sy = alpha.sx, alpha.sy
 
   def s_grads(x, sig):
     z = x / sig
     s_val = 1.0 / (1.0 + jnp.exp(-1.6 * z - 0.07 * z * z * z))
-    ds_dx = (1.6 + 0.21 * z * z) * s_val * (1.0 - s_val)
-    d_dx = ds_dx / sig
+    d_dx = (1.6 + 0.21 * z * z) * s_val * (1.0 - s_val) / sig
     return s_val, d_dx, d_dx * -z
 
-  sx1, dx1, dx1s = s_grads(tu + 0.5, sx)
-  sx2, dx2, dx2s = s_grads(tu - 0.5, sx)
-  sy1, dy1, dy1s = s_grads(tv + 0.5, sy)
-  sy2, dy2, dy2s = s_grads(tv - 0.5, sy)
-
+  sx1, dx1, dx1s = s_grads(alpha.tu + 0.5, sx)
+  sx2, dx2, dx2s = s_grads(alpha.tu - 0.5, sx)
+  sy1, dy1, dy1s = s_grads(alpha.tv + 0.5, sy)
+  sy2, dy2, dy2s = s_grads(alpha.tv - 0.5, sy)
   ix = sx * (sx1 - sx2)
   iy = sy * (sy1 - sy2)
-
   dsx_t = iy * sx * (dx1 - dx2)
   dsy_t = ix * sy * (dy1 - dy2)
+  ax, ay, dx, dy = alpha.ax, alpha.ay, alpha.dx, alpha.dy
+  return (tau * (-dsx_t * ax + dsy_t * ay),
+          tau * (-dsx_t * ay - dsy_t * ax),
+          tau * (dsx_t * dx + dsy_t * dy),
+          tau * (dsx_t * dy - dsy_t * dx),
+          tau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx),
+          tau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy))
 
-  dmx = tau * (-dsx_t * ax + dsy_t * ay)
-  dmy = tau * (-dsx_t * ay - dsy_t * ax)
-  dax = tau * (dsx_t * dx + dsy_t * dy)
-  day = tau * (dsx_t * dy - dsy_t * dx)
-  dsx_ = tau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx)
-  dsy_ = tau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy)
-  return dmx, dmy, dax, day, dsx_, dsy_
+
+def _row_gradients(alpha: _Alpha, alpha_grad, w, gimg, config: RasterConfig):
+  """Per-row gradient columns [mean, axis, sigma, point alpha, features
+  (, prune_cost, split_score)], each (rows,), reduced over the tile's
+  pixels (backward.py:180-197)."""
+  z = alpha_grad * (alpha.a_raw < config.clamp_max_alpha)   # dL/d a_raw
+  zp = z * alpha.pa                                         # dL/d pdf
+  if config.antialias:
+    d_pdf = _antialias_grads(alpha)
+    px_terms = [zp * d for d in d_pdf]
+  else:
+    zpp = zp * alpha.pdf
+    isx = 1.0 / alpha.sx
+    isy = 1.0 / alpha.sy
+    ax, ay, u, v = alpha.ax, alpha.ay, alpha.u, alpha.v
+    px_terms = [zpp * (u * (ax * isx) - v * (ay * isy)),
+                zpp * (u * (ay * isx) + v * (ax * isy)),
+                -zpp * (u * isx * alpha.dx + v * isy * alpha.dy),
+                -zpp * (u * isx * alpha.dy - v * isy * alpha.dx),
+                zpp * (u * u) * isx,
+                zpp * (v * v) * isy]
+  cols = [jnp.sum(x, axis=1) for x in px_terms]
+  cols.append(jnp.sum(z * alpha.pdf, axis=1))
+  cols += [jnp.sum(w * g, axis=1) for g in gimg[:-1]]
+  if config.compute_point_heuristic:
+    aag = alpha.pa * alpha_grad
+    cols.append(jnp.sum(aag * aag, axis=1))
+    cols.append(jnp.sum(jnp.abs(px_terms[0]) + jnp.abs(px_terms[1]),
+                        axis=1))
+  return cols
 
 
-def backward(sorted_rows: jnp.ndarray, image_tiled: jnp.ndarray,
-             g_image_tiled: jnp.ndarray, chunk_src: jnp.ndarray,
-             chunk_cnt: jnp.ndarray, chunk_to_tile: jnp.ndarray,
-             config: RasterConfig, num_tiles: int, tiles_wide: int):
-  """Backward pass: per-overlap gradients in chunk layout, to be reduced to
-  points by the caller (sorted-segment-sum, layout.py).  Rows beyond each
-  chunk's valid count yield exactly-zero gradient rows (alpha masking).
+def _backward_kernel(ranges_ref, rows_ref, img_ref, gimg_ref, _zeros_ref,
+                     out_ref, *, config: RasterConfig, tiles_wide: int,
+                     f: int):
+  t = pl.program_id(0)
+  start = ranges_ref[t, 0]
+  end = ranges_ref[t, 1]
+  dtype = rows_ref.dtype
+  px, py = _pixel_centres(t, config.tile_size, tiles_wide, dtype)
+  lcut = log_cut(config)
 
-  Returns (K*g, 7 + F [+ 2]) gradient rows: [mean, axis, sigma, alpha,
-  features(, prune_cost, split_score)].
+  gimg = [gimg_ref[t, c, :] for c in range(f + 1)]          # (PIX,) each
+  s0 = gimg[0] * img_ref[t, 0, :]
+  for c in range(1, f + 1):
+    s0 = s0 + gimg[c] * img_ref[t, c, :]
+
+  def cond(carry):
+    j, lt, _ = carry
+    return (j < end) & (jnp.max(lt) > lcut)
+
+  def body(carry):
+    j, lt, s = carry
+    valid, cols = _load_block(rows_ref, j, end, 7 + f)
+    alpha = _Alpha(cols, px, py, valid, config)
+    lt_i, l_sum = _composite(alpha, lt)
+    live = (lt_i > lcut) & (alpha.a > 0.0)
+    t_i = jnp.exp(lt_i)
+    w = jnp.where(live, alpha.a * t_i, 0.0)
+    # d pixel / d weight: features plus the alpha channel (feature 1)
+    gf = gimg[f][None, :] + cols[7] * gimg[0][None, :]
+    for c in range(1, f):
+      gf = gf + cols[7 + c] * gimg[c][None, :]
+    wgf = w * gf
+    s_i = s[None, :] - jnp.cumsum(wgf, axis=0)   # remaining after each row
+    alpha_grad = jnp.where(live, t_i * gf - s_i / (1.0 - alpha.a), 0.0)
+
+    grads = _row_gradients(alpha, alpha_grad, w, gimg, config)
+    for c, g in enumerate(grads):
+      plgpu.store(out_ref.at[pl.ds(j, BLOCK), jnp.int32(c)], g, mask=valid)
+    return j + BLOCK, lt + l_sum, s - jnp.sum(wgf, axis=0)
+
+  zero = jnp.zeros((config.tile_area,), dtype)
+  jax.lax.while_loop(cond, body, (start, zero, s0))
+
+
+def reduce_rows_to_points(rows: jnp.ndarray, point_ids: jnp.ndarray,
+                          num_points: int) -> jnp.ndarray:
+  """Sum per-overlap rows into their points (XLA scatter-add); ids at or
+  past ``num_points`` (overlap slots outside every tile range) are
+  dropped."""
+  return jax.ops.segment_sum(rows, point_ids, num_points)
+
+
+def grad_width(config: RasterConfig, f: int) -> int:
+  """Columns of the per-point gradient: [mean(2), axis(2), sigma(2),
+  alpha, features(F)] plus [prune_cost, split_score] with heuristics."""
+  return 7 + f + (2 if config.compute_point_heuristic else 0)
+
+
+def backward(sorted_rows: jnp.ndarray, tile_ranges: jnp.ndarray,
+             overlap_to_point: jnp.ndarray, image_tiled: jnp.ndarray,
+             g_image_tiled: jnp.ndarray, config: RasterConfig,
+             tiles_wide: int, num_points: int) -> jnp.ndarray:
+  """Gradients of the blended image w.r.t. every point: one gradient row
+  per overlap from the kernel, summed into points by XLA's scatter-add.
+
+  Returns (num_points, grad_width(config, F)) per-point gradient rows.
   """
-  width = sorted_rows.shape[1]
+  p, width = sorted_rows.shape
   f = width - 7
-  g = config.chunk_size
-  pix = config.tile_area
-  k_chunks = chunk_to_tile.shape[0]
-  dtype = sorted_rows.dtype
-  out_width = width + (2 if config.compute_point_heuristic else 0)
-
-  kernel = functools.partial(
-      _backward_kernel, config=config, num_tiles=num_tiles,
-      tiles_wide=tiles_wide, f=f)
-
-  grid_spec = pltpu.PrefetchScalarGridSpec(
-      num_scalar_prefetch=3,
-      grid=(k_chunks,),
-      in_specs=[
-          pl.BlockSpec((g, width), lambda k, src, cnt, ct: (src[k] // g, 0)),
-          pl.BlockSpec((g, width),
-                       lambda k, src, cnt, ct: (src[k] // g + 1, 0)),
-          pl.BlockSpec((1, f + 1, pix),
-                       lambda k, src, cnt, ct: (ct[k], 0, 0)),
-          pl.BlockSpec((1, f + 1, pix),
-                       lambda k, src, cnt, ct: (ct[k], 0, 0)),
-      ],
-      out_specs=[
-          pl.BlockSpec((g, out_width), lambda k, src, cnt, ct: (k, 0)),
-      ],
-      scratch_shapes=[pltpu.VMEM((1, pix), dtype),
-                      pltpu.VMEM((1, pix), dtype),
-                      pltpu.VMEM((2 * g, width), dtype)],
-  )
-
-  (gout,) = pl.pallas_call(
-      kernel,
-      grid_spec=grid_spec,
-      out_shape=[jax.ShapeDtypeStruct((k_chunks * g, out_width), dtype)],
+  num_tiles = tile_ranges.shape[0]
+  out_shape = jax.ShapeDtypeStruct((p, grad_width(config, f)),
+                                   sorted_rows.dtype)
+  rows = pl.pallas_call(
+      functools.partial(_backward_kernel, config=config,
+                        tiles_wide=tiles_wide, f=f),
+      grid=(num_tiles,),
+      out_shape=out_shape,
+      input_output_aliases={4: 0},   # rows past a tile's stop stay zero
+      backend="triton",
+      compiler_params=plgpu.CompilerParams(num_warps=BACKWARD_WARPS,
+                                           num_stages=1),
       interpret=use_interpret(),
-  )(chunk_src, chunk_cnt, chunk_to_tile, sorted_rows, sorted_rows,
-    image_tiled, g_image_tiled)
-
-  return gout
+      name="raster_backward",
+  )(tile_ranges, sorted_rows, image_tiled, g_image_tiled,
+    jnp.zeros(out_shape.shape, out_shape.dtype))
+  return reduce_rows_to_points(rows, overlap_to_point, num_points)

@@ -1,16 +1,17 @@
-"""Sequential per-pixel rasterization oracle (numpy, test ground truth).
+"""Sequential per-point rasterization oracle (numpy f64, test ground truth).
 
 Plays the role of the reference's torch_lib comparison layer (SURVEY.md §4):
-a deliberately naive, loop-based implementation of exactly the semantics the
-Pallas kernels vectorise — front-to-back alpha compositing with threshold
-masking, alpha clamping and transmittance-freeze saturation, plus the
-quantile (non-blending) mode and per-point visibility.  O(tiles * points *
-pixels); use only on tiny scenes.
+a deliberately naive implementation of exactly the semantics the kernels
+implement — front-to-back alpha compositing, one point at a time, with
+threshold masking, alpha clamping and transmittance-freeze saturation, plus
+the quantile (non-blending) mode and per-point visibility.  Each step is
+vectorised over one tile's pixels only; use it on tiny scenes, or on a few
+sampled tiles of a large one.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -35,73 +36,77 @@ def _pdf(px, py, g, antialias):
   return 2.0 * np.pi * ix * iy
 
 
+def _render_tile(tile, gaussians2d, features, point_ids, tiles_wide,
+                 config: RasterConfig, visibility):
+  """(PIX, F) image and (PIX,) alpha of one tile; adds to visibility."""
+  ts = config.tile_size
+  p = np.arange(ts * ts)
+  px = (tile % tiles_wide) * ts + p % ts + 0.5
+  py = (tile // tiles_wide) * ts + p // ts + 0.5
+  f = features.shape[1]
+  t_run = np.ones(ts * ts)
+  accum = np.zeros((ts * ts, f))
+  total = np.zeros(ts * ts)
+  crossed = np.zeros(ts * ts, bool)
+  cut = 1.0 - config.saturate_threshold
+
+  for pid in point_ids:
+    g = gaussians2d[pid]
+    a = np.minimum(g[6] * _pdf(px, py, g, config.antialias),
+                   config.clamp_max_alpha)
+    live = a > config.alpha_threshold
+    if config.use_alpha_blending:
+      live &= t_run > cut                     # transmittance freeze
+      w = np.where(live, a * t_run, 0.0)
+      accum += w[:, None] * features[pid]
+    else:
+      # quantile mode: no freeze; the feature at the first crossing
+      w = np.where(live, a * t_run, 0.0)
+      t_new = np.where(live, t_run * (1.0 - a), t_run)
+      sel = (live & (t_new <= config.saturate_threshold)
+             & (t_run > config.saturate_threshold) & ~crossed)
+      accum[sel] = features[pid]
+      crossed |= sel
+    total += w
+    visibility[pid] += w.sum()
+    t_run = np.where(live, t_run * (1.0 - a), t_run)
+
+  if config.use_alpha_blending:
+    return accum, total
+  return accum, (t_run < 1.0).astype(np.float64)
+
+
 def rasterize_reference(gaussians2d, features, mapping: TileMapping,
-                        image_size: Tuple[int, int], config: RasterConfig):
-  """Returns (image (H,W,F), image_alpha (H,W), visibility (N,))."""
+                        image_size: Tuple[int, int], config: RasterConfig,
+                        tiles: Optional[Sequence[int]] = None):
+  """Returns (image (H,W,F), image_alpha (H,W), visibility (N,)).
+
+  With ``tiles``, only those tiles are rendered and the images come back
+  per tile: (len(tiles), tile_area, F) and (len(tiles), tile_area)."""
   gaussians2d = np.asarray(gaussians2d, np.float64)
   features = np.asarray(features, np.float64)
   o2p = np.asarray(mapping.overlap_to_point)
   ranges = np.asarray(mapping.tile_ranges)
-
-  w_img, h_img = image_size
   n, f = features.shape
   ts = config.tile_size
   tw, th = tile_shape(image_size, ts)
-
-  image = np.zeros((th * ts, tw * ts, f))
-  alpha_img = np.zeros((th * ts, tw * ts))
   visibility = np.zeros(n)
 
-  cut = 1.0 - config.saturate_threshold
-
-  for tile in range(tw * th):
-    tx, ty = tile % tw, tile // tw
+  todo = range(tw * th) if tiles is None else tiles
+  images, alphas = [], []
+  for tile in todo:
     s, e = ranges[tile]
-    point_ids = o2p[s:e]
+    img, alpha = _render_tile(tile, gaussians2d, features, o2p[s:e], tw,
+                              config, visibility)
+    images.append(img)
+    alphas.append(alpha)
+  images = np.stack(images)
+  alphas = np.stack(alphas)
+  if tiles is not None:
+    return images, alphas, visibility
 
-    for py_i in range(ts):
-      for px_i in range(ts):
-        px = tx * ts + px_i + 0.5
-        py = ty * ts + py_i + 0.5
-
-        t_run = 1.0
-        accum = np.zeros(f)
-        total_weight = 0.0
-        hit = False
-        crossed = False
-
-        for pid in point_ids:
-          g = gaussians2d[pid]
-          a = g[6] * _pdf(px, py, g, config.antialias)
-          a = min(a, config.clamp_max_alpha)
-          if a <= config.alpha_threshold:
-            continue
-
-          if config.use_alpha_blending:
-            # transmittance freeze (kernel parity)
-            if t_run <= cut:
-              continue
-            w = a * t_run
-            accum += features[pid] * w
-            total_weight += w
-            visibility[pid] += w
-            t_run *= (1.0 - a)
-          else:
-            # quantile mode: no freeze; select feature at first crossing
-            w = a * t_run
-            visibility[pid] += w
-            t_run_new = t_run * (1.0 - a)
-            if (t_run_new <= config.saturate_threshold
-                and t_run > config.saturate_threshold and not crossed):
-              accum = features[pid].copy()
-              crossed = True
-            t_run = t_run_new
-            hit = True
-
-        image[ty * ts + py_i, tx * ts + px_i] = accum
-        if config.use_alpha_blending:
-          alpha_img[ty * ts + py_i, tx * ts + px_i] = total_weight
-        else:
-          alpha_img[ty * ts + py_i, tx * ts + px_i] = float(t_run < 1.0)
-
-  return image[:h_img, :w_img], alpha_img[:h_img, :w_img], visibility
+  w_img, h_img = image_size
+  image = images.reshape(th, tw, ts, ts, f).transpose(0, 2, 1, 3, 4)
+  alpha = alphas.reshape(th, tw, ts, ts).transpose(0, 2, 1, 3)
+  return (image.reshape(th * ts, tw * ts, f)[:h_img, :w_img],
+          alpha.reshape(th * ts, tw * ts)[:h_img, :w_img], visibility)

@@ -2,7 +2,7 @@
 
 Deliberately independent, naive re-implementations of every differentiable
 op, used to diff the production kernels against (reference layer L5,
-/root/reference/taichi_splatting/torch_lib/).  Pure jnp/numpy; run them in
+taichi_splatting/torch_lib/).  Pure jnp/numpy; run them in
 f64 on CPU for exact comparisons.  Not a performance path.
 """
 

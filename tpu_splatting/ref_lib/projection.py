@@ -1,7 +1,7 @@
 """Matrix-form EWA projection ground truth.
 
 Independent mirror of the reference's pure-torch projection
-(/root/reference/taichi_splatting/torch_lib/projection.py:63-199): builds
+(taichi_splatting/torch_lib/projection.py:63-199): builds
 the full 3x3 covariance and 2x3 clamped Jacobian with einsums instead of the
 fused per-point forms used by the production op
 (tpu_splatting/perspective/projection.py).  Differentiable (camera pose and

@@ -1,7 +1,7 @@
 """Direct per-point SH evaluation ground truth.
 
 Mirror of the reference's torch SH layer
-(/root/reference/taichi_splatting/torch_lib/spherical_harmonics.py:16-43
+(taichi_splatting/torch_lib/spherical_harmonics.py:16-43
 over generated rsh.py polynomials): normalize view directions, evaluate the
 real SH basis, contract, offset by +0.5 and clamp — written with explicit
 numpy-style steps, independent of the production einsum in

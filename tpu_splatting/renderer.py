@@ -1,6 +1,6 @@
 """Top-level 3D renderer composition.
 
-TPU-native equivalent of /root/reference/taichi_splatting/renderer.py:23-118:
+Equivalent of taichi_splatting/renderer.py:23-118:
 projection -> (optional SH shading) -> NDC depth -> tile mapping ->
 rasterization -> (optional second non-blending pass for median depth).
 Fully jit-compatible (static shapes; ``image_size`` and config are static).
@@ -18,7 +18,7 @@ from .data_types import Gaussians3D, RasterConfig
 from .mapper.tile_mapper import map_to_tiles
 from .perspective.params import CameraParams
 from .perspective.projection import ndc_depth, project_to_image
-from .rasterizer.function import rasterize_with_tiles
+from .rasterizer.function import detile, rasterize_tiled
 from .rendering import RenderedPoints, Rendering
 from .spherical_harmonics import evaluate_sh_at
 
@@ -33,27 +33,25 @@ def render_gaussians(
     render_median_depth: bool = False,
     max_overlaps: Optional[int] = None,
     heuristic_probe: Optional[jnp.ndarray] = None,
-    probe: Optional[jnp.ndarray] = None,
     tiled: bool = False,
 ) -> Rendering:
   """Complete 3D gaussian renderer (reference renderer.py:23-59).
 
   Args mirror the reference; ``max_overlaps`` sets the static overlap
-  capacity (sorted pipeline) and ``heuristic_probe`` is the zero-valued
-  (N, 2) array whose gradient carries (prune_cost, split_score).
-  ``probe`` is the stream pipeline's full (N, probe_width(config)) probe
-  ([visibility, prune, split] cotangent columns).  ``tiled`` (stream
-  pipeline only) keeps the Rendering's image fields in tile layout —
-  training losses then never pay the detile/entile transposes (see
-  Rendering docstring).
+  capacity and ``heuristic_probe`` is the zero-valued (N, 2) array whose
+  gradient carries (prune_cost, split_score).  ``tiled`` keeps the
+  Rendering's image fields in tile layout — training losses then never pay
+  the detile/entile transposes (see Rendering docstring).
   """
-  gaussians2d, depths, in_view = project_to_image(
-      gaussians, camera_params, config)
+  with jax.named_scope("project"):
+    gaussians2d, depths, in_view = project_to_image(
+        gaussians, camera_params, config)
 
   if use_sh:
-    features = evaluate_sh_at(
-        gaussians.feature, jax.lax.stop_gradient(gaussians.position),
-        camera_params.camera_position)
+    with jax.named_scope("sh"):
+      features = evaluate_sh_at(
+          gaussians.feature, jax.lax.stop_gradient(gaussians.position),
+          camera_params.camera_position)
   else:
     features = gaussians.feature
     assert features.ndim == 2, (
@@ -63,7 +61,7 @@ def render_gaussians(
       in_view, gaussians2d, features, depths, camera_params, config,
       use_depth16=use_depth16, render_median_depth=render_median_depth,
       render_depth=render_depth, max_overlaps=max_overlaps,
-      heuristic_probe=heuristic_probe, probe=probe, tiled=tiled)
+      heuristic_probe=heuristic_probe, tiled=tiled)
 
 
 def render_projected(
@@ -78,127 +76,57 @@ def render_projected(
     render_depth: bool = False,
     max_overlaps: Optional[int] = None,
     heuristic_probe: Optional[jnp.ndarray] = None,
-    probe: Optional[jnp.ndarray] = None,
     tiled: bool = False,
 ) -> Rendering:
-  """Rasterize already-projected gaussians (reference renderer.py:62-108).
-
-  Routes through the tile-stream pipeline when ``config.pipeline`` allows.
-  On that path per-point visibility is a backward product: training code
-  should use ``render_with_heuristics`` (or thread ``probe`` and read its
-  gradient), which gets it for free from the backward pass it runs anyway.
-  When ``config.compute_visibility`` is set and no ``probe`` is threaded,
-  this function still honours the request by running one extra
-  zero-cotangent backward dispatch (gradient-stopped), so
-  ``rendering.points.visibility`` works on BOTH pipelines.
-
-  ``use_depth16`` only affects the sorted pipeline's key layout; the
-  stream pipeline ALWAYS composites in quantized-depth order (14- or
-  12-bit keys, stream.depth_bits_for), so the flag is vacuous there.
-  """
-  from .rasterizer.stream_function import (probe_width, stream_eligible,
-                                           stream_map_with_config,
-                                           stream_rasterize_with_mapping)
+  """Rasterize already-projected gaussians (reference renderer.py:62-108)."""
   image_size = camera_params.image_size
   ndc_depths = ndc_depth(depths, camera_params.near_plane,
                          camera_params.far_plane)
   # culled points have depth 0 sentinel -> keep the mapper's invalid mask
   ndc_depths = jnp.where(depths > 0, ndc_depths, 0.0)
-  use_stream = stream_eligible(config, image_size)
 
   if render_depth:
     # composite (feature, depth, depth^2) in one pass -> expectation depth
     feats_all = jnp.concatenate([features, depths, depths ** 2], -1)
-  elif render_median_depth and use_stream:
-    # the stream median pass reuses the mapping's table, so the depth
-    # must ride it as a feature channel
-    feats_all = jnp.concatenate([features, depths], -1)
   else:
     feats_all = features
   f = features.shape[1]
+  f_all = feats_all.shape[1]
   sg = jax.lax.stop_gradient
 
-  assert not tiled or use_stream, (
-      "tiled rendering output is a stream-pipeline feature")
-  if use_stream:
-    mapping = stream_map_with_config(
-        sg(gaussians2d), sg(ndc_depths), sg(feats_all), image_size, config)
-    pw = probe_width(config)
-    if probe is None and heuristic_probe is not None and pw >= 2:
-      n = gaussians2d.shape[0]
-      probe = jnp.concatenate(
-          [jnp.zeros((n, pw - 2), gaussians2d.dtype), heuristic_probe], -1)
-    f_all = feats_all.shape[1]
-    out = stream_rasterize_with_mapping(
-        gaussians2d, feats_all, mapping, image_size, config, probe=probe,
-        tiled=tiled)
+  mapping = map_to_tiles(
+      sg(gaussians2d), sg(ndc_depths),
+      image_size=image_size, config=config,
+      max_overlaps=max_overlaps, use_depth16=use_depth16,
+      features=sg(feats_all))
+  tw, th = mapping.tiles_wide, mapping.tiles_high
+
+  def layout(image_tiled):
+    """(T, C, PIX) tile layout when ``tiled``, else (H, W, C)."""
     if tiled:
-      it = out                                    # (T, F_all+1, PIX)
-      image = it[:, :f, :]
-      image_weight = it[:, f_all, :]
-      depth_image = (it[:, f, :] / jnp.maximum(image_weight, 1e-10)
-                     if render_depth else None)
-    else:
-      img_full, image_weight = out
-      depth_image = (img_full[..., f] / jnp.maximum(image_weight, 1e-10)
-                     if render_depth else None)
-      image = img_full[..., :f]
-    median_depth = None
-    if render_median_depth:
-      median_cfg = dataclasses.replace(
-          config, use_alpha_blending=False,
-          saturate_threshold=config.median_threshold)
-      med_all = stream_rasterize_with_mapping(
-          sg(gaussians2d), sg(feats_all), mapping, image_size, median_cfg,
-          tiled=tiled)
-      median_depth = med_all[:, f, :] if tiled else med_all[0][..., f]
-    visibility = None
-    if config.compute_visibility and probe is None:
-      # no probe threaded (analysis/eval path, not a training step):
-      # visibility = cotangent of probe column 0 under a ZERO image
-      # cotangent (it is sum-of-compositing-weights, independent of the
-      # loss), computed by one extra gradient-stopped backward dispatch.
-      # Trainers get it free via render_with_heuristics instead.
-      pw = probe_width(config)
-      probe0 = jnp.zeros((gaussians2d.shape[0], pw), gaussians2d.dtype)
+      return image_tiled
+    return detile(image_tiled, tw, th, config.tile_size, image_size)
 
-      def probe_only(pr):
-        return stream_rasterize_with_mapping(
-            sg(gaussians2d), sg(feats_all), mapping, image_size, config,
-            probe=pr, tiled=True)
+  def channel(x, c):
+    return x[:, c, :] if tiled else x[..., c]
 
-      it_p, vjp = jax.vjp(probe_only, probe0)
-      (gpr,) = vjp(jnp.zeros_like(it_p))
-      visibility = sg(gpr[:, 0])
-  else:
-    mapping = map_to_tiles(
-        sg(gaussians2d), sg(ndc_depths),
-        image_size=image_size, config=config,
-        max_overlaps=max_overlaps, use_depth16=use_depth16,
-        features=sg(feats_all))
+  image_tiled, visibility = rasterize_tiled(
+      gaussians2d, feats_all, mapping, config, heuristic_probe)
+  out = layout(image_tiled)
+  image = channel(out, slice(0, f))
+  image_weight = channel(out, f_all)
+  depth_image = None
+  if render_depth:
+    depth_image = channel(out, f) / jnp.maximum(image_weight, 1e-10)
 
-    raster = rasterize_with_tiles(
-        gaussians2d, feats_all, mapping,
-        image_size=image_size, config=config,
-        heuristic_probe=heuristic_probe)
-
-    depth_image = None
-    if render_depth:
-      depth_image = raster.image[..., f] / jnp.maximum(raster.image_weight,
-                                                       1e-10)
-    image = raster.image[..., :f]
-    image_weight = raster.image_weight
-
-    median_depth = None
-    if render_median_depth:
-      median_cfg = dataclasses.replace(
-          config, use_alpha_blending=False,
-          saturate_threshold=config.median_threshold)
-      raster_depth = rasterize_with_tiles(
-          sg(gaussians2d), sg(depths),
-          mapping, image_size=image_size, config=median_cfg)
-      median_depth = raster_depth.image[..., 0]
-    visibility = raster.visibility
+  median_depth = None
+  if render_median_depth:
+    median_cfg = dataclasses.replace(
+        config, use_alpha_blending=False,
+        saturate_threshold=config.median_threshold)
+    med_tiled, _ = rasterize_tiled(sg(gaussians2d), sg(depths), mapping,
+                                   median_cfg)
+    median_depth = channel(layout(med_tiled), 0)
 
   points = RenderedPoints(
       in_view=in_view,
@@ -219,7 +147,6 @@ def render_projected(
       camera=camera_params,
       config=config,
       num_overflow=mapping.num_overflow,
-      overflow_by_cause=getattr(mapping, "overflow", None),
       tiled=tiled,
   )
 
@@ -236,11 +163,11 @@ def render_with_heuristics(
 
   Parity with the reference, where the backward kernel fills
   ``point_heuristic`` on the forward output in place
-  (/root/reference/taichi_splatting/rendering.py:41-54,
-  rasterizer/backward.py:190-194) — impossible under jit, so the probe
-  cotangent threading happens here instead of in every trainer:
-  ``rendering.points.prune_cost`` / ``split_score`` are the gradients of a
-  zero-valued probe input computed in the same backward pass as ``grads``.
+  (taichi_splatting/rendering.py:41-54, rasterizer/backward.py:190-194) —
+  impossible under jit, so the probe cotangent threading happens here
+  instead of in every trainer: ``rendering.points.prune_cost`` /
+  ``split_score`` are the gradients of a zero-valued probe input computed in
+  the same backward pass as ``grads``.
 
   Args:
     loss_fn: Rendering -> scalar loss (may close over targets/regularizers).
@@ -252,26 +179,18 @@ def render_with_heuristics(
   """
   assert config.compute_point_heuristic, (
       "render_with_heuristics requires config.compute_point_heuristic")
-  from .rasterizer.stream_function import probe_width, stream_eligible
   n = gaussians.position.shape[0]
-  use_stream = stream_eligible(config, camera_params.image_size)
-  # stream path: the probe gains a leading visibility column whose gradient
-  # fills points.visibility (the sorted pipeline computes it in forward)
-  pw = probe_width(config) if use_stream else 2
-  probe = jnp.zeros((n, pw), gaussians.position.dtype)
+  probe = jnp.zeros((n, 2), gaussians.position.dtype)
 
   def wrapped(g, probe):
-    kw = {"probe": probe} if use_stream else {"heuristic_probe": probe}
     rendering = render_gaussians(g, camera_params, config,
-                                 **kw, **render_kwargs)
+                                 heuristic_probe=probe, **render_kwargs)
     return loss_fn(rendering), rendering
 
   (loss, rendering), (grads, gpr) = jax.value_and_grad(
       wrapped, argnums=(0, 1), has_aux=True)(gaussians, probe)
   points = rendering.points.replace(
-      _prune_cost=gpr[:, pw - 2], _split_score=gpr[:, pw - 1])
-  if use_stream and pw == 3:
-    points = points.replace(_visibility=gpr[:, 0])
+      _prune_cost=gpr[:, 0], _split_score=gpr[:, 1])
   return loss, rendering.replace(points=points), grads
 
 

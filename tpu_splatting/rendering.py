@@ -1,7 +1,7 @@
 """Rendering output types (pytree dataclasses).
 
-TPU-native equivalents of the reference output TensorClasses
-(/root/reference/taichi_splatting/rendering.py:27-157).  Divergence: the
+Equivalents of the reference output TensorClasses
+(taichi_splatting/rendering.py:27-157).  Divergence: the
 pipeline is uncompacted (static shapes), so ``RenderedPoints`` covers all N
 points with an ``in_view`` mask instead of a compacted index list; ``idx``
 is retained for API parity as ``arange(N)`` masked semantics.
@@ -91,11 +91,11 @@ jax.tree_util.register_dataclass(
 class Rendering:
   """Full render output (reference rendering.py:105-157).
 
-  When ``tiled`` (stream pipeline, ``render_projected(tiled=True)``) the
-  image fields stay in TILE layout — image (T, C, PIX), image_weight /
-  depth images (T, PIX) — so a training loss can run without the
-  detile/entile transposes (pair with ``stream_function.entile`` on the
-  target and ``tile_mask`` for valid pixels; ``detile`` recovers (H, W, C)).
+  When ``tiled`` (``render_projected(tiled=True)``) the image fields stay
+  in TILE layout — image (T, C, PIX), image_weight / depth images
+  (T, PIX) — so a training loss can run without the detile/entile
+  transposes (pair with ``rasterizer.function.entile`` on the target and
+  ``tile_mask`` for valid pixels; ``detile`` recovers (H, W, C)).
   """
   image: jnp.ndarray                          # (H, W, C) | (T, C, PIX)
   image_weight: jnp.ndarray                   # (H, W)    | (T, PIX)
@@ -108,14 +108,10 @@ class Rendering:
   median_depth_image: Optional[jnp.ndarray] = None    # (H, W)
   # () i32 — overlap rows dropped by the mapper's static capacities.
   # A render is only exact when this is 0; trainers should assert it
-  # (or recalibrate stream caps / raise max_overlaps) — capacity overflow
-  # is COUNTED, never silent (divergence from the reference, which
-  # reallocates on the host instead; see MIGRATION.md).
+  # (or raise max_overlaps / big_capacity) — capacity overflow is COUNTED,
+  # never silent (divergence from the reference, which reallocates on the
+  # host instead; see MIGRATION.md).
   num_overflow: Optional[jnp.ndarray] = None
-  # (5,) i32 — num_overflow split by cause (stream pipeline only):
-  # [wide/dup, strip, slab, run, window]; see stream.OVERFLOW_CAUSES.
-  # Tells a trainer WHICH stream capacity to bump on drift.
-  overflow_by_cause: Optional[jnp.ndarray] = None
   # Image fields are in tile layout (see class docstring).
   tiled: bool = False
 
@@ -144,6 +140,5 @@ class Rendering:
 jax.tree_util.register_dataclass(
     Rendering,
     data_fields=["image", "image_weight", "points", "camera",
-                 "depth_image", "median_depth_image", "num_overflow",
-                 "overflow_by_cause"],
+                 "depth_image", "median_depth_image", "num_overflow"],
     meta_fields=["config", "tiled"])

@@ -1,10 +1,10 @@
 """Spherical-harmonics shading (pure jnp).
 
-TPU-native equivalent of the reference SH evaluation kernels
-(/root/reference/taichi_splatting/indexed_spherical_harmonics.py:118-177 and
+Equivalent of the reference SH evaluation kernels
+(taichi_splatting/indexed_spherical_harmonics.py:118-177 and
 spherical_harmonics.py:40-133).  The evaluation is a basis-polynomial
-evaluation plus a per-point contraction — a perfect fit for XLA fusion /
-the MXU, so no Pallas kernel is required; ``jax.grad`` replaces the
+evaluation plus a per-point contraction — a fit for XLA fusion, so no
+Pallas kernel is required; ``jax.grad`` replaces the
 reference's Taichi-autodiff backward (indexed_spherical_harmonics.py:152-160),
 giving gradients for the SH coefficients, positions AND camera position.
 
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
 
 from .lib import transforms
@@ -43,5 +44,6 @@ def evaluate_sh_at(
 
   direction = transforms.normalize(positions - camera_pos)
   basis = rsh_cart(direction, degree)              # (N, B)
-  out = jnp.einsum("nkb,nb->nk", sh_params, basis)
+  out = jnp.einsum("nkb,nb->nk", sh_params, basis,
+                   precision=jax.lax.Precision.HIGHEST)
   return jnp.clip(out + 0.5, 0.0, 1.0)

@@ -1,7 +1,7 @@
 """Recursive non-finite guard (debug aid).
 
 Equivalent of the reference check_finite
-(/root/reference/taichi_splatting/torch_lib/util.py:7-51): counts/raises on
+(taichi_splatting/torch_lib/util.py:7-51): counts/raises on
 non-finite values across pytrees.  Host-side (forces a device sync) — use
 between jitted steps, as the reference trainer does
 (examples/fit_image_gaussians.py:124).
